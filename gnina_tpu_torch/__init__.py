@@ -1,0 +1,19 @@
+"""gnina_tpu_torch: the PyTorch/CUDA port of gnina_tpu for one NVIDIA H100.
+
+A second package beside the JAX one.  It imports torch and numpy, never
+jax and never gnina_tpu.  This slice ports the default docking route,
+`DockingEngine.dock_batch` with `cnn_scoring="none"`, whose kernels (the
+fused value+gradient, truncated BFGS and in-kernel Monte Carlo) are
+hand-written CUDA for sm_90a in csrc/fused_dock.cu, built on first CUDA use.
+
+Float32 matmuls and convolutions run in full float32: TF32 is switched off
+here, at the package's entry, because the pose math (FK origins, RMSD Gram
+matrices) loses ~0.06 A at TF32/bf16 input precision.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

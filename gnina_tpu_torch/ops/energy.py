@@ -1,0 +1,122 @@
+"""Differentiable docking energy: receptor-ligand + intra-ligand + box penalty.
+
+The plain reference for the fused kernels (reference: gninasrc/lib/
+non_cache.cpp eval/eval_deriv, model.cu eval_interacting_pairs/eval_deriv):
+one function of the conformation, batched over leading pose dimensions.
+The N_lig x K_rec pair energies are evaluated analytically and masked by
+the cutoff; gradients come from autograd with respect to a zero DOF
+increment, which is mathematically the reference's force/torque reverse
+pass.
+
+Energy-capping "v" semantics (model.cu:202-226):
+  v[0] -> intra-ligand pairs, v[1] -> rec-lig interactions
+All capping via curl(); per movable atom for rec-lig, per pair for intra.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from gnina_tpu_torch.ops import fk
+from gnina_tpu_torch.scoring.terms import gather_type_params
+from gnina_tpu_torch.scoring.weighted import ScoringFunction, curl
+from gnina_tpu_torch.types import Conf, LigandData, ReceptorData
+
+
+class Box(NamedTuple):
+    lo: torch.Tensor  # (3,)
+    hi: torch.Tensor  # (3,)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnergyFn:
+    """Bound energy evaluator for one scoring function."""
+
+    sf: ScoringFunction
+    max_layers: int
+    eval_energy: Callable     # (lig, rec, conf, box, slope, v) -> energy
+    eval_deriv: Callable      # same args -> (energy, grad (..., 6+T))
+    eval_inter: Callable      # (lig, rec, conf, box, slope, v1)
+    eval_intra: Callable      # (lig, conf, v0)
+    inter_on_coords: Callable  # (lig, rec, coords, box, slope, v1)
+
+
+def make_energy_fn(sf: ScoringFunction, max_layers: int) -> EnergyFn:
+    """Energy/gradient functions taking explicit (lig: LigandData,
+    rec: ReceptorData, conf: Conf, box: Box, slope, v: (3,)); confs may
+    carry any leading batch shape."""
+    cutoff_sqr = sf.cutoff ** 2
+
+    def _params(lig: LigandData, rec: ReceptorData):
+        dev = lig.types.device
+        return (gather_type_params(sf.table, lig.types, dev),
+                gather_type_params(sf.table, rec.types, dev))
+
+    def inter_energy(lig, rec, coords, box: Box, slope, v1):
+        """Receptor interaction per movable heavy atom + box penalty.
+
+        Mirrors non_cache::eval_deriv (non_cache.cpp:127-180): coords are
+        clamped into the box for the pair distances; |overflow|*slope adds
+        a linear penalty.  curl() caps the per-atom receptor sum."""
+        adj = torch.maximum(torch.minimum(coords, box.hi), box.lo)
+        oob = torch.sum(torch.abs(coords - adj), dim=-1)          # (..., N)
+        pl, pr = _params(lig, rec)
+        diff = adj[..., :, None, :] - rec.coords                  # (..., N, K, 3)
+        r2 = torch.sum(diff * diff, dim=-1)
+        r = torch.sqrt(torch.clamp(r2, min=1e-12))
+        pa = {k: v[:, None] for k, v in pl.items()}
+        pb = {k: v[None, :] for k, v in pr.items()}
+        e_pair = sf.eval_pair(pa, pb, r, qa=lig.charges[:, None],
+                              qb=rec.charges[None, :])
+        valid = (r2 < cutoff_sqr) & rec.mask[None, :] & lig.heavy_mask[:, None]
+        e_atom = torch.sum(torch.where(valid, e_pair, 0.0), dim=-1)
+        e_atom = curl(e_atom, v1)
+        e_atom = torch.where(lig.heavy_mask, e_atom + slope * oob, 0.0)
+        return torch.sum(e_atom, dim=-1)
+
+    def intra_energy(lig, coords, v0):
+        """Intra-ligand 1-4+ pair energy, curl per pair at v[0]
+        (model.cu:22-36)."""
+        ca = coords[..., lig.pair_a, :]
+        cb = coords[..., lig.pair_b, :]
+        r2 = torch.sum((ca - cb) ** 2, dim=-1)
+        r = torch.sqrt(torch.clamp(r2, min=1e-12))
+        pl = gather_type_params(sf.table, lig.types, lig.types.device)
+        pa = {k: p[lig.pair_a] for k, p in pl.items()}
+        pb = {k: p[lig.pair_b] for k, p in pl.items()}
+        e = sf.eval_pair(pa, pb, r, qa=lig.charges[lig.pair_a],
+                         qb=lig.charges[lig.pair_b])
+        e = curl(e, v0)
+        valid = (r2 < cutoff_sqr) & lig.pair_mask
+        return torch.sum(torch.where(valid, e, 0.0), dim=-1)
+
+    def total_energy(lig, rec, conf: Conf, box: Box, slope, v):
+        coords = fk.fk_coords(lig, conf, max_layers)
+        return (inter_energy(lig, rec, coords, box, slope, v[1])
+                + intra_energy(lig, coords, v[0]))
+
+    def eval_deriv(lig, rec, conf: Conf, box: Box, slope, v):
+        t = conf.torsions.shape[-1]
+        eps = torch.zeros(conf.position.shape[:-1] + (6 + t,),
+                          dtype=torch.float32, device=conf.position.device,
+                          requires_grad=True)
+        with torch.enable_grad():
+            e = total_energy(lig, rec, fk.conf_with_increment_var(conf, eps),
+                             box, slope, v)
+            (g,) = torch.autograd.grad(e.sum(), eps)
+        return e.detach(), g
+
+    def eval_inter(lig, rec, conf: Conf, box: Box, slope, v1):
+        coords = fk.fk_coords(lig, conf, max_layers)
+        return inter_energy(lig, rec, coords, box, slope, v1)
+
+    def eval_intra(lig, conf: Conf, v0):
+        coords = fk.fk_coords(lig, conf, max_layers)
+        return intra_energy(lig, coords, v0)
+
+    return EnergyFn(sf=sf, max_layers=max_layers, eval_energy=total_energy,
+                    eval_deriv=eval_deriv, eval_inter=eval_inter,
+                    eval_intra=eval_intra, inter_on_coords=inter_energy)
