@@ -573,7 +573,7 @@ __global__ void __launch_bounds__(NT) k_bfgs(
   const float f_init = s.sc[S_E], met_init = s.sc[S_MET];
   float f0 = f_init, met = met_init;
   set_eye(s.h, 1.0f, D);
-  float n_trials = 0.0f, n_iters = 0.0f;
+  float n_trials = 0.0f, n_iters = 0.0f, n_acc = 0.0f;
   for (int it = 0; it < maxiters; ++it) {
     neg_hdot(s.h, s.g, s.dofm, s.p, D);
     if (t == 0) s.sc[S_PG] = dotD(s.p, s.g, D);
@@ -594,6 +594,7 @@ __global__ void __launch_bounds__(NT) k_bfgs(
       if ((f1 - f0) < C0 * alpha * pg) { accepted = true; break; }
     }
     if (!accepted) break;                  // stuck: no step can follow
+    n_acc += 1.0f;
     eval_pose<true>(s, pk, tm, sv, nh, s.t_rig, s.t_tor, s.gn);
     diff_stats(s, D);
     if (it == 0) first_scale(s, alpha, D);
@@ -622,6 +623,7 @@ __global__ void __launch_bounds__(NT) k_bfgs(
     st[1] = want_metro ? met : 0.0f;
     st[2] = n_trials;
     st[3] = n_iters;
+    st[4] = n_acc;
   }
 }
 

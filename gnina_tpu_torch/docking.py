@@ -26,6 +26,7 @@ import torch
 from gnina_tpu_torch.chem.ingest import Receptor, box_from_center_size
 from gnina_tpu_torch.chem.tree_build import LigandStruct
 from gnina_tpu_torch.constants import IS_HYDROGEN, MAX_FL
+from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.ops import fk, mc
 from gnina_tpu_torch.ops import fused_dock as fd
 from gnina_tpu_torch.ops import mc_fused
@@ -147,16 +148,6 @@ def _minimize_iters_heuristic(lig: LigandStruct, settings: DockSettings) -> int:
     return max(int((25 + lig.num_atoms) / 3), 1)
 
 
-def resolve_device(device) -> torch.device:
-    """device=None means the card; a missing card raises (the CPU runs only
-    when the caller names it)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain versions on the CPU")
-    return dev
-
-
 class DockingEngine:
     """Docking on one device through the fused kernels."""
 
@@ -170,17 +161,28 @@ class DockingEngine:
 
     def _fused_eligible(self, ligs) -> None:
         """Raise NotImplementedError for a job the fused route does not
-        take: vina-family scoring, ligand-only, CNN out of the search loop."""
+        take: vina-family scoring, ligand-only, no CNN (the rescore is the
+        next slice's, CNN in the loop the general path's)."""
         s = self.settings
         if s.fused_search == "off":
             raise NotImplementedError(f"fused_search='off' {_GENERAL_PATH}")
         if fd.extract_vina_terms(self.sf) is None:
             raise NotImplementedError(
                 f"scoring function {self.sf.name!r} {_GENERAL_PATH}")
-        if s.cnn_scoring not in ("none", "rescore"):
+        if s.cnn_scoring == "rescore" or s.sort_order in ("CNNscore",
+                                                           "CNNaffinity"):
+            raise NotImplementedError(
+                f"cnn_scoring={s.cnn_scoring!r}, sort_order="
+                f"{s.sort_order!r}: the CNN rescore is not ported yet "
+                f"(ROADMAP.md, Queue 1: CNN rescore); use cnn_scoring='none'")
+        if s.cnn_scoring != "none":
             raise NotImplementedError(
                 f"cnn_scoring={s.cnn_scoring!r} (CNN in the loop) "
                 f"{_GENERAL_PATH}")
+        if s.canonical_shapes:
+            raise NotImplementedError(
+                "canonical_shapes pads to share compiled TPU programs; the "
+                "port's kernels take their shapes at run time")
         if s.simple_ascent or s.minimize_single_full:
             raise NotImplementedError(f"the testing minimizers {_GENERAL_PATH}")
         if (not s.fused_mc_in_kernel or not s.fused_async_mc
@@ -276,10 +278,9 @@ class DockingEngine:
             raise ValueError("empty ligand batch")
         self._fused_eligible(ligs)
         dev = self.device
-        rn, rm, rp = (16, 8, 128) if s.canonical_shapes else (8, 4, 32)
-        n = _round_up(max(l.num_atoms for l in ligs), rn)
-        m = _round_up(max(l.num_nodes for l in ligs), rm)
-        p = _round_up(max(max(len(l.pairs) for l in ligs), 1), rp)
+        n = _round_up(max(l.num_atoms for l in ligs), 8)
+        m = _round_up(max(l.num_nodes for l in ligs), 4)
+        p = _round_up(max(max(len(l.pairs) for l in ligs), 1), 32)
         max_layers = _round_up(max(int(l.layer.max()) if l.num_nodes > 1
                                    else 1 for l in ligs), 4)
         pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
@@ -288,8 +289,6 @@ class DockingEngine:
         lo, hi = box_from_center_size(center, size)
         num_steps = max(_num_steps_heuristic(l, s) for l in ligs)
         miniters = max(_minimize_iters_heuristic(l, s) for l in ligs)
-        if s.canonical_shapes:
-            miniters = _round_up(miniters, 4)
         num_out = max(s.num_modes, s.num_mc_saved)
         e = s.exhaustiveness
         lanes = len(ligs) * e
@@ -418,12 +417,8 @@ class DockingEngine:
         return all_results
 
     def _sort(self, results: List[PoseResult]) -> List[PoseResult]:
-        order = self.settings.sort_order
-        if order == "CNNscore":
-            return sorted(results, key=lambda r: -r.cnnscore)
-        if order == "CNNaffinity":
-            return sorted(results, key=lambda r: -r.cnnaffinity)
-        # auto -> Energy: this route carries no CNN scorer
+        # auto -> Energy: this route carries no CNN scorer, and
+        # _fused_eligible refuses the CNN sort orders
         return sorted(results, key=lambda r: r.energy)
 
     def _remove_redundant(self, results: List[PoseResult],

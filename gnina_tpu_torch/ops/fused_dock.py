@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from gnina_tpu_torch.constants import EPSILON_FL, IS_HYDROGEN
+from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.ops import quat as Q
 from gnina_tpu_torch.scoring import terms as T
 from gnina_tpu_torch.scoring.weighted import ScoringFunction
@@ -125,12 +126,13 @@ class DockPack(NamedTuple):
 
 
 def build_pack(ligs, rec_coords, rec_types, rec_mask, exhaustiveness: int,
-               table, m_pad: int = 0, device="cpu") -> DockPack:
+               table, m_pad: int = 0, device=None) -> DockPack:
     """Build kernel arrays from host LigandStructs + receptor atoms.
 
     Lane layout: lane = ligand_index * exhaustiveness + chain.  m_pad:
     force at least this many tree nodes (so the packed torsion layout lines
     up with an externally chosen Conf slot count)."""
+    device = resolve_device(device)
     g = len(ligs)
     heavy_lists = [np.where(~IS_HYDROGEN[l.types])[0] for l in ligs]
     n = max(1, max(len(h) for h in heavy_lists))
@@ -220,7 +222,8 @@ def packed_to_conf(rigid, tors, t: int) -> Conf:
 
 
 def scal_vector(v_intra, v_inter, slope, v_metro, lo, hi, amplitude=2.0,
-                temperature=1.2, device="cpu") -> torch.Tensor:
+                temperature=1.2, device=None) -> torch.Tensor:
+    device = resolve_device(device)
     lo = torch.as_tensor(lo, dtype=torch.float32).reshape(3).tolist()
     hi = torch.as_tensor(hi, dtype=torch.float32).reshape(3).tolist()
     return torch.tensor([float(v_intra), float(v_inter), float(slope),
@@ -506,7 +509,7 @@ def bfgs_minimize_plain(terms: VinaTerms, rigid0, tors0, scal,
     it converges (|g|^2 < 1e-4), has no descent direction, or exhausts
     every trial without an accept — from then on its state can no longer
     change.  Returns rigid (L, 8), tors (L, M), stats (L, 8) = [f, metro,
-    trial evals, iterations, 0...], coords (L, N, 3)."""
+    trial evals, iterations, accepted iterations, 0...], coords (L, N, 3)."""
     lanes = rigid0.shape[0]
     log2f = float(np.log2(ls_factor))
     f_init, met_init, g, _ = _eval(terms, rigid0, tors0, scal, pack, True)
@@ -518,6 +521,7 @@ def bfgs_minimize_plain(terms: VinaTerms, rigid0, tors0, scal,
     done = torch.zeros(lanes, dtype=torch.bool, device=rigid0.device)
     n_trials = torch.zeros(lanes, dtype=torch.float32, device=rigid0.device)
     n_iters = torch.zeros_like(n_trials)
+    n_acc = torch.zeros_like(n_trials)
     for it in range(maxiters):
         p = -torch.einsum("lij,lj->li", h, g) * dofm
         pg = torch.sum(p * g, dim=1)
@@ -547,6 +551,7 @@ def bfgs_minimize_plain(terms: VinaTerms, rigid0, tors0, scal,
         # a lane that exhausted every trial is deterministically stuck
         done = done | (active & ~accepted)
         step = active & accepted
+        n_acc += step.float()
         if not bool(step.any()):
             break
         _, _, g_new, _ = _eval(terms, trig, ttors, scal, pack, True)
@@ -574,7 +579,8 @@ def bfgs_minimize_plain(terms: VinaTerms, rigid0, tors0, scal,
         met_out = torch.zeros_like(met_out)
     coords = fk_packed(rigid, tors, pack)
     z = torch.zeros_like(f_out)
-    stats = torch.stack([f_out, met_out, n_trials, n_iters, z, z, z, z], 1)
+    stats = torch.stack([f_out, met_out, n_trials, n_iters, n_acc, z, z, z],
+                        1)
     return rigid, tors, stats, coords
 
 
@@ -770,6 +776,50 @@ def async_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
         out += (dict(start_rigid=st_rig, start_tors=st_tor,
                      done_tick=st_tick),)
     return out
+
+
+def replay_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
+                           pack: DockPack, ecur, stream, uniforms):
+    """Step by step, the plain version of each stream row of a K3 window
+    that completed all its steps on supplied uniforms: the mutation of that
+    window's own chain head by the row's start-tick uniforms, then one BFGS
+    iteration (the candidate search at maxiters 1).  Each row is held to
+    its own start, so a window whose chain heads carry earlier rows'
+    float32 differences is still compared at the one-iteration bound.
+
+    stream = (srigid (L, S, 8), stors (L, S, M), sstat (L, S, 3)) of the
+    window under test.  Returns per-row energies (L, S), positions
+    (L, S, 3), the Metropolis decisions recomputed from the window's own
+    energies and the row's completion-tick uniform (L, S), and each lane's
+    ticks (L,)."""
+    srig, stor, sstat = stream
+    lanes, s_steps = sstat.shape[:2]
+    lig = pack.lane_lig.long()
+    dofm, ap = pack.dofmask[lig], pack.ap[lig]
+    amp, temp = scal[10], scal[11]
+    ix = torch.arange(lanes, device=rigid0.device)
+    crig, ctors, e_cur = rigid0, tors0, ecur.clone()
+    tick = torch.zeros(lanes, dtype=torch.long, device=rigid0.device)
+    es, pos, accs = [], [], []
+    for j in range(s_steps):
+        gr = _gyration(fk_packed(crig, ctors, pack), crig, ap)
+        mr, mt = _mutate(crig, ctors, gr, uniforms[tick, :, ix], dofm, amp)
+        out = bfgs_minimize_plain(terms, mr, mt, scal, pack, 1, True)
+        # the start tick, then one tick per Armijo trial (a start with no
+        # descent direction still spends the tick that finds it out)
+        done = tick + torch.clamp(out[2][:, 2], min=1).long()
+        ek = sstat[:, j, 0]
+        accs.append((ek < e_cur) | (uniforms[done, 12, ix]
+                                    < torch.exp((e_cur - ek) / temp)))
+        es.append(out[2][:, 1])
+        pos.append(out[0][:, :3])
+        kacc = sstat[:, j, 1] > 0.5
+        crig = torch.where(kacc[:, None], srig[:, j], crig)
+        ctors = torch.where(kacc[:, None], stor[:, j], ctors)
+        e_cur = torch.where(kacc, ek, e_cur)
+        tick = done + 1
+    return (torch.stack(es, 1), torch.stack(pos, 1), torch.stack(accs, 1),
+            tick)
 
 
 # --------------------------------------------------------------------------

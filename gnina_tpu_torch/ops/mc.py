@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from gnina_tpu_torch.constants import MAX_FL
+from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.ops.quat import random_orientation
 
 
@@ -44,7 +45,8 @@ class PoseContainer(NamedTuple):
 
 
 def empty_container(batch: tuple, s: int, t: int, n: int,
-                    device="cpu") -> PoseContainer:
+                    device=None) -> PoseContainer:
+    device = resolve_device(device)
     f = dict(dtype=torch.float32, device=device)
     ident = torch.tensor([1.0, 0.0, 0.0, 0.0], **f)
     return PoseContainer(
@@ -179,10 +181,11 @@ def merge_containers(conts: PoseContainer, heavy_mask, min_rmsd: float,
 
 
 def randomize_conf(lanes: int, corner1, corner2, t: int,
-                   generator: torch.Generator, device="cpu"):
+                   generator: torch.Generator, device=None):
     """Random position in box, random orientation, random torsions
     (conf.h:119-122,441-446) for `lanes` chains: (pos, quat, tors), drawn
     on the generator's device and returned on `device`."""
+    device = resolve_device(device)
     gdev = generator.device
     lo = torch.as_tensor(corner1, dtype=torch.float32, device=gdev)
     hi = torch.as_tensor(corner2, dtype=torch.float32, device=gdev)
@@ -209,9 +212,10 @@ class MCCarry(NamedTuple):
 
 def mc_init(lanes: int, m: int, params: MCParams, corner1, corner2,
             n_heavy: int, generator: torch.Generator, fk_fn,
-            device="cpu") -> MCCarry:
+            device=None) -> MCCarry:
     """Random chain heads and empty containers for every lane; fk_fn maps
     packed (rigid, tors) to heavy coords."""
+    device = resolve_device(device)
     from gnina_tpu_torch.ops.fused_dock import conf_to_packed
     from gnina_tpu_torch.types import Conf
 

@@ -13,6 +13,7 @@ import math
 import torch
 
 from gnina_tpu_torch.constants import EPSILON_FL
+from gnina_tpu_torch.device import resolve_device
 
 
 def qmul(q, r):
@@ -80,8 +81,9 @@ def qrotate(q, v):
     return (m * v[..., None, :]).sum(-1)
 
 
-def random_orientation(shape, generator, device="cpu"):
+def random_orientation(shape, generator, device=None):
     """Uniform random unit quaternions (quaternion.cu:83-96)."""
+    device = resolve_device(device)
     g = torch.randn(tuple(shape) + (4,), generator=generator,
                     dtype=torch.float32, device=device)
     n = torch.sqrt(torch.clamp(torch.sum(g * g, dim=-1), min=EPSILON_FL))

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from gnina_tpu_torch.constants import IS_HYDROGEN
+from gnina_tpu_torch.device import resolve_device
 
 
 class ReceptorData(NamedTuple):
@@ -71,7 +72,8 @@ class Conf(NamedTuple):
 
 
 def pad_receptor(coords, types, charges, k_pad: int,
-                 device="cpu") -> ReceptorData:
+                 device=None) -> ReceptorData:
+    device = resolve_device(device)
     k = len(types)
     if k_pad < k:
         raise ValueError(f"receptor has {k} atoms > pad {k_pad}")
@@ -92,11 +94,12 @@ def pad_receptor(coords, types, charges, k_pad: int,
 
 
 def pad_ligand(lig, n_pad: int, m_pad: int, p_pad: int,
-               device="cpu") -> LigandData:
+               device=None) -> LigandData:
     """LigandStruct (chem/tree_build.py) -> padded LigandData tensors.
 
     Ligand-only: flex residues and their "other" pairs take the general
     path, which is not ported yet."""
+    device = resolve_device(device)
     n, m, p = lig.num_atoms, lig.num_nodes, len(lig.pairs)
     if n_pad < n or m_pad < m or p_pad < p:
         raise ValueError(f"pad too small: atoms {n}>{n_pad} or nodes {m}>{m_pad} "
@@ -148,9 +151,10 @@ def pad_ligand(lig, n_pad: int, m_pad: int, p_pad: int,
     )
 
 
-def initial_conf(lig, t_pad: int, device="cpu") -> Conf:
+def initial_conf(lig, t_pad: int, device=None) -> Conf:
     """Null conf: identity orientation, zero torsions, position = root origin
     (model.cpp:741 get_initial_conf)."""
+    device = resolve_device(device)
     return Conf(
         position=torch.as_tensor(np.asarray(lig.orig_coords[0], np.float32),
                                  device=device),

@@ -220,14 +220,31 @@ def _vdw_sf():
 
 
 @pytest.mark.parametrize("case", [
-    "fused_search_off", "cnn_in_loop", "non_vina_terms", "flex",
+    "fused_search_off", "cnn_rescore", "cnn_sort_score", "cnn_sort_affinity",
+    "cnn_in_loop", "canonical_shapes", "non_vina_terms", "flex",
     "covalent", "lockstep_mc", "async_ls", "warm_ls", "done_frac"])
 def test_jobs_outside_the_fused_route_raise(system, case):
+    """Each job the fused route does not take raises, from dock_batch and
+    from score_only, instead of running with made-up CNN fields or
+    another route's settings."""
     settings = dict(SETTINGS)
     sf = None
     lig = system["lig"]
+    match = "ROADMAP.md"
     if case == "fused_search_off":
         settings["fused_search"] = "off"
+    elif case == "cnn_rescore":
+        settings["cnn_scoring"] = "rescore"     # DockSettings' default
+        match = "CNN rescore"
+    elif case == "cnn_sort_score":
+        settings["sort_order"] = "CNNscore"
+        match = "CNN rescore"
+    elif case == "cnn_sort_affinity":
+        settings["sort_order"] = "CNNaffinity"
+        match = "CNN rescore"
+    elif case == "canonical_shapes":
+        settings["canonical_shapes"] = True
+        match = "canonical_shapes"
     elif case == "cnn_in_loop":
         settings["cnn_scoring"] = "all"
     elif case == "non_vina_terms":
@@ -245,9 +262,11 @@ def test_jobs_outside_the_fused_route_raise(system, case):
     elif case == "done_frac":
         settings["fused_done_frac"] = 0.9
     eng = DockingEngine(DockSettings(**settings), sf=sf, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=match):
         eng.dock_batch(system["rec"], [lig], system["center"],
                        system["size"], seed=0)
+    with pytest.raises(NotImplementedError, match=match):
+        eng.score_only(system["rec"], lig)
 
 
 def test_settings_defaults_match_jax():

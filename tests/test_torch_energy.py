@@ -137,9 +137,10 @@ def test_pair_terms_on_r_grid(name):
 def _pads(system):
     jlig, tlig, pr = system["jlig"], system["tlig"], system["pr"]
     jl = jpad_ligand(jlig, N_PAD, M_PAD, P_PAD)
-    tl = tpad_ligand(tlig, N_PAD, M_PAD, P_PAD)
+    tl = tpad_ligand(tlig, N_PAD, M_PAD, P_PAD, device="cpu")
     jr = jpad_receptor(pr.coords, pr.types, pr.charges, K_PAD)
-    tr = tpad_receptor(pr.coords, pr.types, pr.charges, K_PAD)
+    tr = tpad_receptor(pr.coords, pr.types, pr.charges, K_PAD,
+                       device="cpu")
     return jl, tl, jr, tr
 
 
@@ -221,7 +222,7 @@ def _packs(system, exhaustiveness=3):
                         m_pad=M_PAD)
     tp = tfd.build_pack([tlig, tlig], pr.coords, pr.types,
                         np.ones(kr, np.float32), exhaustiveness,
-                        port_sf(jsf).table, m_pad=M_PAD)
+                        port_sf(jsf).table, m_pad=M_PAD, device="cpu")
     return jp, tp
 
 

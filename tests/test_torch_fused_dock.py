@@ -70,7 +70,7 @@ def system(tmp_path_factory):
     tsf = port_sf(jsf)
     kr = len(pr.types)
     pack = fd.build_pack([tlig], pr.coords, pr.types, np.ones(kr, np.float32),
-                         LANES, tsf.table, m_pad=M_PAD)
+                         LANES, tsf.table, m_pad=M_PAD, device="cpu")
     jl = jpad_ligand(jlig, N_PAD, M_PAD, P_PAD)
     jr = jpad_receptor(pr.coords, pr.types, pr.charges, K_PAD)
     efn = jenergy.make_energy_fn(jsf, LAYERS)
@@ -80,7 +80,8 @@ def system(tmp_path_factory):
 
 
 def scal(system, v=HUNT):
-    return fd.scal_vector(v[0], v[1], v[2], v[3], system["lo"], system["hi"])
+    return fd.scal_vector(v[0], v[1], v[2], v[3], system["lo"], system["hi"],
+                          device="cpu")
 
 
 def random_confs(system, seed):
@@ -263,6 +264,11 @@ def test_bfgs_plain_three_iterations_and_descent(system):
     _, _, stats8, _ = fd.bfgs_minimize(system["terms"], rigid, tors,
                                        scal(system), system["pack"], 8)
     assert (stats8[:, 0] <= e0 + 1e-3).all()
+    # accepted iterations (row 4) never exceed those run (row 3), which
+    # exceed them by at most the one that ran out of trials
+    assert (stats8[:, 4] <= stats8[:, 3]).all()
+    assert (stats8[:, 3] - stats8[:, 4] <= 1).all()
+    assert (stats8[:, 4] >= 1).any()
     # stats row 1 is the Metropolis energy at the returned pose
     r8, t8, _, _ = fd.bfgs_minimize(system["terms"], rigid, tors,
                                     scal(system), system["pack"], 8)
@@ -284,7 +290,7 @@ def test_bfgs_plain_restores_when_not_improved(system):
     e0, _, _, _ = fd.eval_fg(system["terms"], rigid, tors, scal(system), pack)
     assert torch.equal(r, rigid) and torch.equal(t, tors)
     assert torch.equal(stats[:, 0], e0)
-    assert (stats[:, 3] == 0).all()
+    assert (stats[:, 3] == 0).all() and (stats[:, 4] == 0).all()
 
 
 # ---------------------------------------------------------------- K3 ----
@@ -376,6 +382,24 @@ def test_async_mc_plain_steps_replay_with_jax(system):
             assert bool(sstat[l, j, 1] > 0) == want, (l, j)
             if want:
                 e_cur = e_new
+
+
+def test_async_mc_plain_window_is_its_step_replay(system):
+    """replay_mc_window_plain, which holds a window's rows one by one to the
+    plain step from that window's own chain head, gives back the plain
+    window exactly: the same energies, positions, Metropolis decisions and
+    ticks.  It is the reference the CUDA window is held to on a card."""
+    confs = perturbed_confs(system, 14)
+    rigid, tors, ecur, uni, out = _mc(system, confs, 15)
+    _, _, stats, _, srig, stor, sstat, tr = out
+    e, pos, acc, ticks = fd.replay_mc_window_plain(
+        system["terms"], rigid, tors, scal(system), system["pack"], ecur,
+        (srig, stor, sstat), uni)
+    assert torch.equal(e, sstat[..., 0])
+    assert torch.equal(pos, srig[..., :3])
+    assert torch.equal(acc, sstat[..., 1] > 0.5)
+    assert torch.equal(ticks, stats[:, 2].long())
+    assert torch.equal(ticks - 1, tr["done_tick"][:, -1])
 
 
 def test_async_mc_plain_generator_is_deterministic(system):

@@ -73,3 +73,42 @@ def test_default_device_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DockingEngine(DockSettings(cnn_scoring="none"))
+
+
+@pytest.mark.parametrize("builder", [
+    "build_pack", "scal_vector", "pad_ligand", "pad_receptor",
+    "initial_conf", "empty_container", "randomize_conf", "mc_init",
+    "random_orientation"])
+def test_building_blocks_default_to_the_card(builder):
+    """The public building blocks take device=None as the card too: with no
+    card they raise instead of building CPU tensors."""
+    import numpy as np
+    import torch
+
+    from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch.ops import fused_dock as fd
+    from gnina_tpu_torch.ops import mc, quat
+    from gnina_tpu_torch.scoring.builtin import get_scoring_function
+    from gnina_tpu_torch.types import initial_conf, pad_ligand, pad_receptor
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    lig = fx.ligand()
+    gen = torch.Generator().manual_seed(0)
+    z = np.zeros(3)
+    calls = {
+        "build_pack": lambda: fd.build_pack(
+            [lig], np.zeros((1, 3)), [0], np.ones(1), 1,
+            get_scoring_function("vina").table),
+        "scal_vector": lambda: fd.scal_vector(1, 1, 1, 1, z, z),
+        "pad_ligand": lambda: pad_ligand(lig, 24, 4, 96),
+        "pad_receptor": lambda: pad_receptor(np.zeros((1, 3)), [0], [0.0], 8),
+        "initial_conf": lambda: initial_conf(lig, 3),
+        "empty_container": lambda: mc.empty_container((1,), 2, 3, 8),
+        "randomize_conf": lambda: mc.randomize_conf(2, z, z + 1, 3, gen),
+        "mc_init": lambda: mc.mc_init(2, 4, mc.MCParams(), z, z + 1, 8, gen,
+                                      lambda r, t: None),
+        "random_orientation": lambda: quat.random_orientation((2,), gen),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[builder]()

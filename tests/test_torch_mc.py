@@ -89,7 +89,7 @@ def test_merge_containers_matches_jax(seed):
 
 
 def test_empty_container_matches_jax():
-    got = tmc.empty_container((2,), 4, T, N_ATOMS)
+    got = tmc.empty_container((2,), 4, T, N_ATOMS, device="cpu")
     want = jmc.empty_container(4, T, N_ATOMS)
     for f in tmc.PoseContainer._fields:
         for b in range(2):
@@ -100,7 +100,7 @@ def test_empty_container_matches_jax():
 def test_randomize_conf_draws_in_box_from_its_generator():
     lo, hi = np.array([-1.0, 2.0, 0.0]), np.array([3.0, 5.0, 1.0])
     g = torch.Generator().manual_seed(5)
-    pos, quat, tors = tmc.randomize_conf(4000, lo, hi, T, g)
+    pos, quat, tors = tmc.randomize_conf(4000, lo, hi, T, g, device="cpu")
     assert ((pos >= torch.as_tensor(lo, dtype=torch.float32))
             & (pos <= torch.as_tensor(hi, dtype=torch.float32))).all()
     np.testing.assert_allclose(torch.linalg.norm(quat, dim=1).numpy(), 1.0,
@@ -109,7 +109,8 @@ def test_randomize_conf_draws_in_box_from_its_generator():
     # uniform orientations: each quaternion component has mean ~0
     assert quat.mean(0).abs().max() < 0.05
     again = tmc.randomize_conf(4000, lo, hi, T,
-                               torch.Generator().manual_seed(5))
+                               torch.Generator().manual_seed(5),
+                               device="cpu")
     assert all(torch.equal(a, b) for a, b in zip((pos, quat, tors), again))
 
 
@@ -123,7 +124,7 @@ def test_mc_init_chain_heads():
         return torch.zeros(r.shape[0], N_ATOMS, 3)
 
     carry = tmc.mc_init(6, T + 1, params, np.zeros(3), np.ones(3), N_ATOMS,
-                        g, fk_fn)
+                        g, fk_fn, device="cpu")
     assert carry.rigid.shape == (6, 8) and carry.tors.shape == (6, T + 1)
     assert (carry.tors[:, 0] == 0).all() and (carry.rigid[:, 7] == 0).all()
     assert (carry.e == MAX_FL).all() and (carry.best_e == MAX_FL).all()
