@@ -4,12 +4,22 @@
     python3 chip_smoke.py [--seed N]
 
 Builds csrc/fused_dock.cu from this checkout (nvcc, sm_90a), holds each of
-its three kernels against its plain PyTorch version at the main path's
-shapes, docks 16 copies of the minout.sdf ligand x exhaustiveness 8 (128
-chains, 1024 MC steps) through DockingEngine.dock_batch on the card, and
-times every kernel.  The receptor is synthetic, made from --seed: heavy
-atoms at protein density on a jittered lattice around the ligand with a
-cavity carved at its centre, read through Receptor.from_file.
+its kernels and kernel modes (K1 eval_fg, K2 bfgs_minimize and its async_ls
+mode K4, K3 async_mc_window and its warm_ls mode K6, K5 lockstep_mc_window,
+K7's gradient layout over K1) against its plain PyTorch version at the
+main path's shapes, and docks 16 copies of the minout.sdf ligand x
+exhaustiveness 8 (128 chains) through DockingEngine.dock_batch on the card
+under each search setting that selects one of them: the default in-kernel
+search at 1024 MC steps, the same with fused_async_ls and with
+fused_warm_ls, lockstep windows (fused_async_mc=False, 256 steps) and the
+host-driven step loop (fused_mc_in_kernel=False, 4 ligands, 256 steps).
+Then it docks under the default settings with the default three-model CNN
+ensemble (at 1024 steps, and once at the settings' own step heuristic),
+holds the grids and ensemble outputs of one pose chunk against the same
+code on the CPU, and times every kernel.  The receptor is synthetic, made
+from --seed: heavy atoms at protein density on a jittered lattice around
+the ligand with a cavity carved at its centre, read through
+Receptor.from_file.
 
 A last phase traces one more dock_batch with torch.profiler and splits
 the card's busy time by kernel.
@@ -132,14 +142,15 @@ def pack_bytes(pack, lanes, m):
 
 def trace_dock(run):
     """Run `run()` once under torch.profiler; returns (wall s, device ms by
-    kernel, launches of kernels other than the port's three).  Kernels run
+    kernel, launches of kernels other than the port's own).  Kernels run
     on one stream, so their durations add up to the device's busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = (("k_async_mc", "async_mc_window"), ("k_bfgs", "bfgs_minimize"),
-             ("k_eval_fg", "eval_fg"))
+    names = (("k_async_mc", "async_mc_window"),
+             ("k_lockstep_mc", "lockstep_mc_window"),
+             ("k_bfgs", "bfgs_minimize"), ("k_eval_fg", "eval_fg"))
     busy = {nm: 0.0 for _, nm in names}
     busy["other kernels"] = 0.0
     n_other = 0
@@ -161,10 +172,12 @@ def trace_dock(run):
     return wall, busy, n_other
 
 
-def compare_k2(fd, terms, r, t, sc, pk, iters, wm, rtol, atol):
-    """K2 against its plain version from the same starts.  A lane whose two
-    versions made the same numbers of Armijo trials and accepted steps
-    took the same path and is held to (rtol, atol).  Any other lane had an
+def compare_k2(fd, terms, r, t, sc, pk, iters, wm, rtol, atol,
+               async_ls=False):
+    """K2 (K4 with async_ls) against its plain version from the same
+    starts.  A lane whose two versions made the same numbers of Armijo
+    trials and accepted steps took the same path and is held to (rtol,
+    atol).  Any other lane had an
     Armijo test decided the other way (a flip); at most 1% of lanes may,
     and at one iteration each flip must be explained by the K1 bound: the
     Armijo margin at the deciding trial, recomputed by the plain version,
@@ -172,9 +185,11 @@ def compare_k2(fd, terms, r, t, sc, pk, iters, wm, rtol, atol):
     (max |de| over same-path lanes, flipped lanes)."""
     import torch
 
-    got = fd.bfgs_minimize(terms, r, t, sc, pk, iters, wm)
+    got = fd.bfgs_minimize(terms, r, t, sc, pk, iters, wm,
+                           async_ls=async_ls)
     torch.cuda.synchronize()
-    ref = fd.bfgs_minimize_plain(terms, r, t, sc, pk, iters, wm)
+    ref = fd.bfgs_minimize_plain(terms, r, t, sc, pk, iters, wm,
+                                 async_ls=async_ls)
     gs, rs = got[2], ref[2]
     same = (gs[:, 2] == rs[:, 2]) & (gs[:, 4] == rs[:, 4])
     err = max_err(gs[same, :2], rs[same, :2])
@@ -199,6 +214,23 @@ def compare_k2(fd, terms, r, t, sc, pk, iters, wm, rtol, atol):
               f"K2 Armijo flip not explained by the K1 bound: margins "
               f"{margin[flip].tolist()}")
     return err, nflip
+
+
+def counted_dock(fd, eng, *args, **kw):
+    """One dock_batch with every kernel count set to 0 just before and read
+    just after: (results, wall s, launches, by lanes, by mode)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for k in fd.KERNELS:
+        k.reset()
+    t0 = time.perf_counter()
+    results = eng.dock_batch(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (results, wall, {k.name: k.launches for k in fd.KERNELS},
+            {k.name: dict(k.launches_by_lanes) for k in fd.KERNELS},
+            {k.name: dict(k.launches_by_mode) for k in fd.KERNELS})
 
 
 def bound_ms(ops, nbytes):
@@ -342,6 +374,48 @@ def main():
               f"Armijo flips on {flips[1]} and {flips[3]} of {nl} lanes; 8 "
               f"iterations never above the start (+1e-3)", flush=True)
 
+    # ---- 3b. K4 (K2 with async_ls) at both K2 shapes ----------------------
+    # Against its plain version with the K2 bounds and flip rule, then its
+    # final state against K2's own on the same starts: one block per pose
+    # walks the same trial points in both modes, so lanes that made the
+    # same number of trials must agree to 1e-4 kcal/mol and 1e-5 in the
+    # pose, and K4's accepts (stats row 3) are K2's accepted iterations.
+    for label, pk, nl, sc, wm in (
+            ("refine", pack, lanes, scal_r, True),
+            ("finish", pack_out, out_lanes, scal_s, False)):
+        r, t = k2_starts[label]
+        k4, flips = {}, {}
+        for iters, rtol, atol in ((1, 5e-4, 5e-3), (3, 1e-2, 5e-2)):
+            k4[iters], flips[iters] = compare_k2(
+                fd, terms, r, t, sc, pk, iters, wm, rtol, atol,
+                async_ls=True)
+        a = fd.bfgs_minimize(terms, r, t, sc, pk, miniters, wm,
+                             async_ls=True)
+        b = fd.bfgs_minimize(terms, r, t, sc, pk, miniters, wm)
+        torch.cuda.synchronize()
+        same = a[2][:, 2] == b[2][:, 2]
+        check(float(same.float().mean()) >= 0.99,
+              f"K4 {label}: trial counts differ from K2's on "
+              f"{int((~same).sum())} lanes")
+        d_e = max_err(a[2][same, :2], b[2][same, :2])
+        d_x = max(max_err(a[0][same], b[0][same]),
+                  max_err(a[1][same], b[1][same]))
+        check(d_e <= 1e-4 and d_x <= 1e-5,
+              f"K4 {label} final state off K2's by {d_e} kcal/mol, {d_x}")
+        check(torch.equal(a[2][same, 3], b[2][same, 4]),
+              f"K4 {label} accepts differ from K2's accepted iterations")
+        check(bool((a[2][:, 2] <= miniters * fd.NUM_TRIALS + 1).all()),
+              "K4 ticks above the cap")
+        errs[f"bfgs_minimize[async_ls]/{label}"] = k4[1]
+        print(f"[3b] K4 bfgs_minimize[async_ls]/{label} (L={nl}) vs plain: "
+              f"max |de| {k4[1]:.2e} at 1 iteration (rtol 5e-4, atol 5e-3), "
+              f"{k4[3]:.2e} at 3 (rtol 1e-2, atol 5e-2) on same-path lanes; "
+              f"Armijo flips on {flips[1]} and {flips[3]} of {nl} lanes; at "
+              f"{miniters} iterations the final state equals K2's on "
+              f"{int(same.sum())} of {nl} lanes with the same trial count: "
+              f"max |de| {d_e:.2e} (1e-4), |dx| {d_x:.2e} (1e-5)",
+              flush=True)
+
     # ---- 4. K3 vs its plain version --------------------------------------
     # S=4 steps of one BFGS iteration each on the same supplied uniforms.
     # Each stream row is held to the K2 one-iteration bound against the
@@ -406,27 +480,163 @@ def main():
           f"completed of {128 * lanes}, {int(acc.sum())} accepted, "
           f"{int(full[2][:, 2].sum())} evaluations", flush=True)
 
+    # ---- 4b. K6 (K3 with warm_ls) -----------------------------------------
+    # The flag off is the call above, bit for bit.  The flag on, at 2
+    # iterations per candidate (the second starts at the warm exponent),
+    # is held row by row to the plain step under the same flag from the
+    # kernel's own chain head, at the K2 3-iteration bound; lanes whose
+    # ticks differ took an Armijo test the other way (at most 2 of 128).
+    s_steps, maxit = 4, 2
+    budget = 1 + maxit * fd.NUM_TRIALS
+    r, t = fx.packed_poses(rng, lanes, lo, hi, lig, m, dev, "perturbed")
+    uni = torch.as_tensor(rng.random((s_steps * budget, fd.N_DRAWS, lanes),
+                                     dtype=np.float32), device=dev)
+    margs = (terms, r, t, scal_h, pack, ecur, s_steps, budget, maxit)
+    cold = fd.async_mc_window(*margs, uniforms=uni)
+    off = fd.async_mc_window(*margs, uniforms=uni, warm_ls=False)
+    warm = fd.async_mc_window(*margs, uniforms=uni, warm_ls=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(cold, off)),
+          "K6 with the flag off is not the K3 window")
+    check(bool((warm[6][..., 2] == 1).all()), "K6 left steps incomplete")
+    e_rep, p_rep, acc_rep, ticks = fd.replay_mc_window_plain(
+        terms, r, t, scal_h, pack, ecur, warm[4:], uni, maxiters=maxit,
+        warm_ls=True)
+    same = ticks == warm[2][:, 2].long()
+    k6_flips = int((~same).sum())
+    check(k6_flips <= 2, f"K6 Armijo flips on {k6_flips} lanes")
+    k6_err = max_err(warm[6][same][..., 0], e_rep[same])
+    check(close(warm[6][same][..., 0], e_rep[same], 1e-2, 5e-2),
+          f"K6 stream energies off the plain steps by {k6_err}")
+    check(torch.equal(warm[6][same][..., 1] > 0.5, acc_rep[same]),
+          "K6 Metropolis decisions")
+    check(not torch.equal(warm[2][:, 2], cold[2][:, 2]),
+          "K6 took the cold window's ticks on every lane")
+    errs["async_mc_window[warm_ls]"] = k6_err
+    print(f"[4b] K6 async_mc_window[warm_ls] (S=4, maxiters 2): flag off "
+          f"bit-identical to K3; flag on vs the plain steps under warm_ls: "
+          f"max |de| {k6_err:.2e} (rtol 1e-2, atol 5e-2), Metropolis "
+          f"decisions recomputed, Armijo flips on {k6_flips} of {lanes} "
+          f"lanes (at most 2); evaluations {int(warm[2][:, 2].sum())} warm "
+          f"vs {int(cold[2][:, 2].sum())} cold", flush=True)
+
+    # ---- 4c. K5 vs its plain version -------------------------------------
+    # S=4 and S=16 steps of one BFGS iteration each on supplied uniforms,
+    # in both line-search modes.  Each stream row is held against the plain
+    # step from the kernel's own chain head
+    # (fd.replay_lockstep_window_plain): at least 99% of the rows within the
+    # K2 one-iteration bound (rtol 5e-4, atol 5e-3) and every row within
+    # the three-iteration bound (rtol 1e-2, atol 5e-2): over some 3,000
+    # rows a few candidates step down a clash, where the step amplifies
+    # the float32 differences of K1's gradient.  A row whose trial count
+    # differs from the replay's took an Armijo test the other way (at most
+    # 1% of rows).
+    k5_err, k5_flips, k5_rows, k5_loose = 0.0, 0, 0, 0
+    for s_steps, async_ls in ((4, False), (16, False), (4, True)):
+        r, t = fx.packed_poses(rng, lanes, lo, hi, lig, m, dev, "perturbed")
+        uni = torch.as_tensor(rng.random((s_steps, fd.N_DRAWS, lanes),
+                                         dtype=np.float32), device=dev)
+        got = fd.lockstep_mc_window(terms, r, t, scal_h, pack, ecur, s_steps,
+                                    1, async_ls=async_ls, uniforms=uni)
+        torch.cuda.synchronize()
+        e_rep, p_rep, tr_rep, acc_rep, c_rep = \
+            fd.replay_lockstep_window_plain(
+                terms, r, t, scal_h, pack, ecur, got[4:], uni, 1,
+                async_ls=async_ls)
+        same = tr_rep == got[6][..., 2]
+        nflip = int((~same).sum())
+        check(nflip <= 0.01 * same.numel(),
+              f"K5 S={s_steps}: Armijo flips on {nflip} rows")
+        ek, er = got[6][..., 0][same].double(), e_rep[same].double()
+        err = max_err(ek, er)
+        tight = (ek - er).abs() <= 5e-3 + 5e-4 * er.abs()
+        n_loose = int((~tight).sum())
+        check(n_loose <= 0.01 * tight.numel() and close(ek, er, 1e-2, 5e-2),
+              f"K5 S={s_steps} stream energies off the plain steps by {err} "
+              f"({n_loose} rows beyond the one-iteration bound)")
+        check(max_err(got[4][..., :3][same], p_rep[same]) <= 2e-3,
+              f"K5 S={s_steps} stream positions off the plain steps")
+        check(torch.equal(got[6][..., 1] > 0.5, acc_rep),
+              f"K5 S={s_steps} Metropolis decisions")
+        check(torch.equal(got[6][..., 2].sum(1), got[2][:, 2]),
+              f"K5 S={s_steps} trial counts")
+        # the final chain state is the last accepted row; the coordinates
+        # are those of the last step's last evaluation as the JAX kernel
+        # leaves them: the last iterate before the restore, or under
+        # async_ls the last tick's trial point (within 1e-2 A: a rejected
+        # trial lies a whole step down K1's gradient, which carries its
+        # float32 differences)
+        acc = got[6][..., 1] > 0.5
+        last = (acc * torch.arange(1, s_steps + 1, device=dev)).argmax(1)
+        ix = torch.arange(lanes, device=dev)
+        check(torch.equal(got[0], got[4][ix, last])
+              and torch.equal(got[2][:, 0], got[6][ix, last, 0]),
+              f"K5 S={s_steps} final chain state")
+        check(max_err(got[3][same[:, -1]], c_rep[same[:, -1]]) <= 1e-2,
+              f"K5 S={s_steps} coordinates off the plain last step's")
+        if not async_ls:
+            c_last = fd.fk_packed(got[4][:, -1], got[5][:, -1], pack)
+            check(max_err(got[3], c_last) <= 1e-4,
+                  f"K5 S={s_steps} coordinates are not the last iterate's")
+        k5_err, k5_flips = max(k5_err, err), k5_flips + nflip
+        k5_rows += same.numel()
+        k5_loose += n_loose
+    errs["lockstep_mc_window"] = k5_err
+    r, t = fx.packed_poses(rng, lanes, lo, hi, lig, m, dev, "random")
+    full5 = fd.lockstep_mc_window(terms, r, t, scal_h, pack, ecur, 16,
+                                  miniters, seed=args.seed + 3)
+    again = fd.lockstep_mc_window(terms, r, t, scal_h, pack, ecur, 16,
+                                  miniters, seed=args.seed + 3)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(full5, again)),
+          "K5 on Philox is not deterministic")
+    check(bool(torch.isfinite(full5[6][..., 0]).all()),
+          "K5 non-finite energies")
+    check(bool((full5[6][:, 0, 1] == 1).all()), "K5 first step not accepted")
+    print(f"[4c] K5 lockstep_mc_window vs the plain steps on supplied "
+          f"uniforms (S=4 and S=16, and S=4 with async_ls; L={lanes}, "
+          f"maxiters 1): max |de| {k5_err:.2e} (rtol 1e-2, atol 5e-2; "
+          f"{k5_loose} rows beyond rtol 5e-4, atol 5e-3, at most 1%), "
+          f"positions within 2e-3 A, Metropolis decisions recomputed, "
+          f"Armijo flips on {k5_flips} of {k5_rows} rows; full window S=16 "
+          f"maxiters {miniters} on Philox: {int(full5[6][..., 1].sum())} of "
+          f"{16 * lanes} steps accepted, {int(full5[2][:, 2].sum())} trial "
+          f"evaluations, the same window for the same seed", flush=True)
+
+    # ---- 4d. K7: the debug_grad layout over K1's gradient ----------------
+    r, t = k1_poses["perturbed"]
+    got7 = fd.debug_grad(terms, r, t, scal_r, pack_out)
+    torch.cuda.synchronize()
+    ref7 = fd.eval_fg_plain(terms, r, t, scal_r, pack_out)
+    n_rows = pack_out.dims[0]
+    dof = 6 + m - 1
+    rows7 = got7[3].permute(0, 2, 1).reshape(out_lanes, 3 * n_rows)
+    check(close(rows7[:, :dof], ref7[2], 1e-3, 1e-2),
+          f"K7 gradient rows off by {max_err(rows7[:, :dof], ref7[2])}")
+    check(bool((rows7[:, dof:] == 0).all()), "K7 rows past D not zero")
+    check(close(got7[2][:, 0], ref7[0], 2e-4, 2e-3), "K7 energy row")
+    errs["debug_grad"] = max_err(rows7[:, :dof], ref7[2])
+    print(f"[4d] K7 debug_grad (K1's gradient in the rows of the coordinate "
+          f"output, L={out_lanes}): max |dg| {errs['debug_grad']:.2e} vs "
+          f"plain (rtol 1e-3, atol 1e-2), rows past D zero", flush=True)
+
     # ---- 5. the main path end to end ---------------------------------------
     settings = DockSettings(cnn_scoring="none", num_mc_steps=MC_STEPS,
                             exhaustiveness=EXHAUSTIVENESS)
     eng = DockingEngine(settings)           # device=None: the card
     check(eng.device.type == "cuda", "default device is not the card")
     eng.dock_batch(rec, ligs, center, size, seed=args.seed)     # warm
-    torch.cuda.synchronize()
-    for k in fd.KERNELS:
-        k.reset()
-    t0 = time.perf_counter()
-    results = eng.dock_batch(rec, ligs, center, size, seed=args.seed + 1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in fd.KERNELS}
-    by_lanes = {k.name: dict(k.launches_by_lanes) for k in fd.KERNELS}
+    results, wall, launches, by_lanes, by_mode = counted_dock(
+        fd, eng, rec, ligs, center, size, seed=args.seed + 1)
     check(launches["async_mc_window"] == MC_STEPS // 128,
           f"K3 launches {launches['async_mc_window']}")
     check(launches["bfgs_minimize"] == 2 * (MC_STEPS // 128) + 5,
           f"K2 launches {launches['bfgs_minimize']}")
     check(launches["eval_fg"] == 1, f"K1 launches {launches['eval_fg']}")
-    check(len(results) == LIGANDS and all(results), "missing poses")
+    check(launches["lockstep_mc_window"] == 0
+          and not by_mode["bfgs_minimize"].get(True)
+          and not by_mode["async_mc_window"].get(True),
+          "the default search launched a fallback mode")
     # each pose against the plain exact rescore of its conf, within 1e-3
     # kcal/mol plus 0.005 per atom pair within 2e-3 A^2 of the cutoff (the
     # energy steps there; two float32 paths may round to either side)
@@ -439,31 +649,40 @@ def main():
     cap = [1000.0] * 3
     heavy = ~IS_HYDROGEN[lig.types]
     rc = np.asarray(pruned.coords, np.float64)
-    worst = 0.0
-    for res in results:
-        conf = Conf(*[torch.as_tensor(np.stack([getattr(p, f) for p in res]),
-                                      device=dev)
-                      for f in ("conf_position", "conf_orientation",
-                                "conf_torsions")])
-        with torch.no_grad():
-            inter, _ = exact_split(efn, lig_d, rec_d, conf, box, 1e3, cap)
-        e_ref = eng._conf_independent(lig, inter.cpu().numpy())
-        for i, p in enumerate(res):
-            c = np.clip(np.asarray(p.coords, np.float64)[heavy], lo, hi)
-            d2 = ((c[:, None] - rc[None]) ** 2).sum(-1)
-            tol = 1e-3 + 0.005 * int((np.abs(d2 - sf.cutoff ** 2)
-                                      < 2e-3).sum())
-            worst = max(worst, abs(p.energy - float(e_ref[i])))
-            check(abs(p.energy - float(e_ref[i])) <= tol,
-                  f"pose energy {p.energy} vs plain rescore {e_ref[i]}")
-        e = [p.energy for p in res]
-        check(e == sorted(e), "poses not sorted by energy")
-        for i in range(len(res)):
-            for j in range(i):
-                d = np.sqrt(((res[i].coords[heavy] - res[j].coords[heavy])
-                             ** 2).sum(1).mean())
-                check(d > settings.out_min_rmsd, "poses closer than "
-                      "out_min_rmsd")
+
+    def verify(results, n_ligs, min_rmsd, by_energy=True):
+        """The repo's own checks of a dock's poses; returns the largest
+        |energy - plain rescore|."""
+        check(len(results) == n_ligs and all(results), "missing poses")
+        worst = 0.0
+        for res in results:
+            conf = Conf(*[torch.as_tensor(
+                np.stack([getattr(p, f) for p in res]), device=dev)
+                for f in ("conf_position", "conf_orientation",
+                          "conf_torsions")])
+            with torch.no_grad():
+                inter, _ = exact_split(efn, lig_d, rec_d, conf, box, 1e3, cap)
+            e_ref = eng._conf_independent(lig, inter.cpu().numpy())
+            for i, p in enumerate(res):
+                c = np.clip(np.asarray(p.coords, np.float64)[heavy], lo, hi)
+                d2 = ((c[:, None] - rc[None]) ** 2).sum(-1)
+                tol = 1e-3 + 0.005 * int((np.abs(d2 - sf.cutoff ** 2)
+                                          < 2e-3).sum())
+                worst = max(worst, abs(p.energy - float(e_ref[i])))
+                check(abs(p.energy - float(e_ref[i])) <= tol,
+                      f"pose energy {p.energy} vs plain rescore {e_ref[i]}")
+                check(bool(np.isfinite(p.coords).all()), "non-finite pose")
+            if by_energy:
+                e = [p.energy for p in res]
+                check(e == sorted(e), "poses not sorted by energy")
+            for i in range(len(res)):
+                for j in range(i):
+                    d = np.sqrt(((res[i].coords[heavy]
+                                  - res[j].coords[heavy]) ** 2).sum(1).mean())
+                    check(d > min_rmsd, "poses closer than out_min_rmsd")
+        return worst
+
+    worst = verify(results, LIGANDS, settings.out_min_rmsd)
     best = min(r_[0].energy for r_ in results)
     counts = [len(r_) for r_ in results]
     print(f"[5] dock_batch {LIGANDS} ligands x {EXHAUSTIVENESS} chains, "
@@ -471,6 +690,191 @@ def main():
           f"best {best:.3f} kcal/mol, poses per ligand {counts}, launches "
           f"{launches} {by_lanes}; energies vs plain rescore max |de| "
           f"{worst:.2e}", flush=True)
+
+    # ---- 5b-5e. the fallback search settings, each through dock_batch -----
+    def settings_dock(label, n_ligs, steps, expect, **kw):
+        """One counted dock under DockSettings(cnn_scoring='none', **kw);
+        `expect` maps kernel name -> launches."""
+        st = DockSettings(cnn_scoring="none", num_mc_steps=steps,
+                          exhaustiveness=EXHAUSTIVENESS, **kw)
+        res, w, ln, bl, bm = counted_dock(
+            fd, DockingEngine(st), rec, ligs[:n_ligs], center, size,
+            seed=args.seed + 1)
+        for name, n in expect.items():
+            check(ln[name] == n, f"{label}: {name} launches {ln[name]}, "
+                  f"expected {n}")
+        worst_ = verify(res, n_ligs, st.out_min_rmsd)
+        print(f"[5{label[0]}] dock_batch {label[3:]}: {n_ligs} ligands x "
+              f"{EXHAUSTIVENESS} chains, {steps} steps: {w:.2f} s, "
+              f"{n_ligs / w:.3f} lig/s, best "
+              f"{min(r_[0].energy for r_ in res):.3f} kcal/mol, launches "
+              f"{ln} by lanes {bl} by mode {bm}; energies vs plain rescore "
+              f"max |de| {worst_:.2e}", flush=True)
+        return ln, bl, bm
+
+    n_win = MC_STEPS // 128
+    # K4 in every BFGS of the default in-kernel search
+    _, bl_k4, bm = settings_dock(
+        "b: fused_async_ls=True", LIGANDS, MC_STEPS,
+        {"async_mc_window": n_win, "bfgs_minimize": 2 * n_win + 5,
+         "eval_fg": 1, "lockstep_mc_window": 0}, fused_async_ls=True)
+    check(bm["bfgs_minimize"] == {True: 2 * n_win + 5},
+          f"async_ls dock ran K2 without the flag: {bm['bfgs_minimize']}")
+    # K6 windows
+    ln_k6, _, bm = settings_dock(
+        "c: fused_warm_ls=True", LIGANDS, MC_STEPS,
+        {"async_mc_window": n_win, "bfgs_minimize": 2 * n_win + 5,
+         "eval_fg": 1, "lockstep_mc_window": 0}, fused_warm_ls=True)
+    check(bm["async_mc_window"] == {True: n_win},
+          f"warm_ls dock ran K3 without the flag: {bm['async_mc_window']}")
+    # K5 windows of 16 steps
+    lock_steps = 256
+    ln_k5, _, _ = settings_dock(
+        "d: fused_async_mc=False (lockstep windows)", LIGANDS, lock_steps,
+        {"lockstep_mc_window": lock_steps // 16, "async_mc_window": 0,
+         "bfgs_minimize": lock_steps // 16 + 5, "eval_fg": 1},
+        fused_async_mc=False)
+    # the host-driven step loop over K4: one minimisation per step, one
+    # refine every refine_stride steps, five finish stages
+    host_steps, stride = 256, DockSettings().refine_stride
+    settings_dock(
+        "e: fused_mc_in_kernel=False, fused_async_ls=True (host-driven)", 4,
+        host_steps,
+        {"bfgs_minimize": host_steps + host_steps // stride + 5,
+         "async_mc_window": 0, "lockstep_mc_window": 0, "eval_fg": 1},
+        fused_mc_in_kernel=False, fused_async_ls=True)
+
+    # ---- 5f. the default settings with the default CNN ensemble -----------
+    from gnina_tpu_torch.models.scorer import MAX_POSE_BATCH, CNNScorer
+
+    t0 = time.perf_counter()
+    scorer = CNNScorer()                    # device=None: the card
+    check(scorer.device.type == "cuda", "the scorer is not on the card")
+    check([m_.name for m_ in scorer.models]
+          == ["dense_1_3", "dense_1_3_PT_KD_3", "crossdock_default2018_KD_4"],
+          "not the default ensemble")
+    check(all(m_.grid_points == 48 and m_.num_channels == 28
+              for m_ in scorer.models), "not 28 channels on 48^3")
+    load_s = time.perf_counter() - t0
+    rescore = {"s": 0.0, "poses": 0, "calls": 0}
+    inner = scorer.score_poses_multi
+
+    def timed_rescore(rec_, items):
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        out = inner(rec_, items)
+        torch.cuda.synchronize()
+        rescore["s"] += time.perf_counter() - t_
+        rescore["poses"] += sum(len(c) for _, c in items)
+        rescore["calls"] += 1
+        return out
+
+    scorer.score_poses_multi = timed_rescore
+    # warm: one full chunk through voxelizer and ensemble
+    warm_c = (lig.orig_coords[None] + 0.3 * rng.normal(
+        size=(MAX_POSE_BATCH, 1, 3))).astype(np.float32)
+    inner(rec, [(lig, warm_c)])
+    st_cnn = DockSettings(num_mc_steps=MC_STEPS)     # every other default
+    check(st_cnn.cnn_scoring == "rescore" and st_cnn.sort_order == "auto",
+          "not the default CNN settings")
+    eng_cnn = DockingEngine(st_cnn, cnn_scorer=scorer)
+    res_cnn, wall_cnn, ln, bl, bm = counted_dock(
+        fd, eng_cnn, rec, ligs, center, size, seed=args.seed + 1)
+    check(ln["async_mc_window"] == n_win and ln["eval_fg"] == 1
+          and ln["bfgs_minimize"] == 2 * n_win + 5,
+          f"default-settings dock launches {ln}")
+    verify(res_cnn, LIGANDS, st_cnn.out_min_rmsd, by_energy=False)
+    for res in res_cnn:
+        sc_ = [p.cnnscore for p in res]
+        check(sc_ == sorted(sc_, reverse=True), "poses not sorted by cnnscore")
+        check(all(0.0 < x < 1.0 for x in sc_),
+              f"cnnscore out of (0, 1): {sc_}")
+        check(all(np.isfinite([p.cnnaffinity, p.cnnvariance]).all()
+                  and p.cnnvariance >= 0.0 for p in res),
+              "non-finite CNN affinity or variance")
+    check(rescore["calls"] == 1, "the rescore was not one batched call")
+    resc_s, resc_n = rescore["s"], rescore["poses"]
+
+    # one pose chunk on the card against the same code on the CPU: the
+    # first 8 poses (a chunk of a smaller call; a 128-pose chunk through
+    # three dense nets takes minutes on the host)
+    cpu_scorer = CNNScorer(device="cpu")
+    c8 = np.stack([p.coords for res in res_cnn for p in res][:8])
+    prep = scorer.prepare_multi(rec, [(lig, c8)])
+    check(prep["bp"] == 8, "chunk size")
+
+    def chunk_on(sc_obj):
+        d_ = sc_obj.device
+        a_ = [torch.as_tensor(x, device=d_) for x in prep["rec"]] + [
+            torch.as_tensor(prep[k], device=d_)
+            for k in ("coords", "types", "mask", "centers")]
+        with torch.no_grad():
+            g_ = sc_obj.voxelize_group(sc_obj.models[0], *a_, prep["win"])
+            o_ = sc_obj.ensemble_forward(
+                *a_, prep["win"], torch.Generator(device=d_).manual_seed(0))
+        return g_, o_
+
+    g_gpu, o_gpu = chunk_on(scorer)
+    torch.cuda.synchronize()
+    g_cpu, o_cpu = chunk_on(cpu_scorer)
+    grid_err = max_err(g_gpu.cpu(), g_cpu)
+    check(tuple(g_gpu.shape) == (8, 28, 48, 48, 48), "grid shape")
+    check(float(g_cpu.max()) > 0.5, "empty grids")
+    check(grid_err <= 1e-4, f"grids off the CPU voxelizer by {grid_err}")
+    out_err = max(max_err(a.cpu(), b) for a, b in zip(o_gpu, o_cpu))
+    check(all(close(a.cpu(), b, 1e-3, 1e-4) for a, b in zip(o_gpu, o_cpu)),
+          f"ensemble outputs off the CPU's by {out_err}")
+
+    # per-chunk times at the full chunk of 128 poses
+    prep128 = scorer.prepare_multi(rec, [(lig, warm_c)])
+    a128 = [torch.as_tensor(x, device=dev) for x in prep128["rec"]] + [
+        torch.as_tensor(prep128[k], device=dev)
+        for k in ("coords", "types", "mask", "centers")]
+    with torch.no_grad():
+        vox_ms = timed(lambda: scorer.voxelize_group(
+            scorer.models[0], *a128, prep128["win"]), 3)
+        g128 = scorer.voxelize_group(scorer.models[0], *a128, prep128["win"])
+        fwd_ms = {m_.name: timed(lambda: m_.module(g128), 3)
+                  for m_ in scorer.models}
+        torch.cuda.reset_peak_memory_stats()
+        scorer.ensemble_forward(*a128, prep128["win"],
+                                torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    del g128
+    print(f"[5f] default settings + default CNN ensemble (3 models, 28 "
+          f"channels x 48^3; loaded in {load_s:.1f} s): dock_batch "
+          f"{LIGANDS} ligands x {EXHAUSTIVENESS} chains, {MC_STEPS} steps: "
+          f"{wall_cnn:.2f} s, {LIGANDS / wall_cnn:.3f} lig/s, of which the "
+          f"CNN rescore of {resc_n} poses {resc_s:.2f} s "
+          f"({100 * resc_s / wall_cnn:.1f}%); poses sorted by cnnscore, "
+          f"best cnnscore {max(r_[0].cnnscore for r_ in res_cnn):.3f}; "
+          f"receptor window {prep128['win']} of {len(prep128['rec'][0])} "
+          f"atoms; per 128-pose chunk: voxelise {vox_ms:.1f} ms, forward "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in fwd_ms.items())
+          + f", peak memory {peak_gb:.2f} GiB; card vs CPU on an 8-pose "
+          f"chunk: grids max |d| {grid_err:.2e} (atol 1e-4), ensemble "
+          f"outputs max |d| {out_err:.2e} (rtol 1e-3, atol 1e-4)",
+          flush=True)
+
+    # ---- 5g. DockSettings() as it stands: the heuristic's step count -------
+    rescore.update(s=0.0, poses=0, calls=0)
+    eng_def = DockingEngine(DockSettings(), cnn_scorer=scorer)
+    res_def, wall_def, ln, _, _ = counted_dock(
+        fd, eng_def, rec, ligs, center, size, seed=args.seed + 1)
+    verify(res_def, LIGANDS, 1.0, by_energy=False)
+    for res in res_def:
+        sc_ = [p.cnnscore for p in res]
+        check(sc_ == sorted(sc_, reverse=True), "poses not sorted by cnnscore")
+    def_steps = int(70 * 3 * (50 + lig.num_atoms
+                              + 10 * (6 + lig.num_torsions)) / 2)
+    print(f"[5g] DockSettings() + default CNN ensemble, {def_steps} MC steps "
+          f"by the heuristic: dock_batch {LIGANDS} ligands x 8 chains: "
+          f"{wall_def:.2f} s, {LIGANDS / wall_def:.3f} lig/s, CNN rescore "
+          f"{rescore['s']:.2f} s of it; best energy "
+          f"{min(p.energy for r_ in res_def for p in r_):.3f} kcal/mol, "
+          f"launches {ln}", flush=True)
+    scorer.score_poses_multi = inner
 
     # ---- 6. kernel timings at the main path's shapes ------------------------
     reps = 5
@@ -496,63 +900,124 @@ def main():
                      replaces="gnina_tpu/ops/pallas_dock.py:677",
                      max_abs_err=errs["eval_fg"]))
 
-    # K2 at both main-path shapes, from the starts phase 3 compared on
-    for label, pk, nl, sc, wm in (
-            ("refine", pack, lanes, scal_r, True),
-            ("finish", pack_out, out_lanes, scal_s, False)):
-        r, t = k2_starts[label]
-        ms = timed(lambda: fd.bfgs_minimize(terms, r, t, sc, pk, miniters,
-                                            wm), reps)
-        pms = timed(lambda: fd.bfgs_minimize_plain(terms, r, t, sc, pk,
-                                                   miniters, wm), reps)
-        out = fd.bfgs_minimize(terms, r, t, sc, pk, miniters, wm)
-        li = pk.lane_lig.long()
-        frac = in_cutoff_fraction(out[3], pk, li, cut2)
-        stats = out[2]
-        # the least work of the function: a value for each rejected Armijo
-        # trial, a value and gradient for the start and each accepted one
-        ops = kernel_ops(stats[:, 2] - stats[:, 4], 1 + stats[:, 4], pk, li,
-                         frac)
-        nbytes = pack_bytes(pk, nl, m) + nl * 4 * (8 + 3 * pack.dims[0])
-        bms, bby = bound_ms(ops, nbytes)
-        rows.append(dict(name=f"bfgs_minimize/{label}", shape=f"L={nl}",
-                         ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                         launches=by_lanes["bfgs_minimize"].get(nl, 0),
-                         replaces="gnina_tpu/ops/pallas_dock.py:722",
-                         max_abs_err=errs[f"bfgs_minimize/{label}"]))
+    # K2 and K4 at both main-path shapes, from the starts phase 3 compared
+    # on; K4's launches are those of the fused_async_ls dock
+    for async_ls, tag, counts_ in ((False, "", by_lanes["bfgs_minimize"]),
+                                   (True, "[async_ls]",
+                                    bl_k4["bfgs_minimize"])):
+        for label, pk, nl, sc, wm in (
+                ("refine", pack, lanes, scal_r, True),
+                ("finish", pack_out, out_lanes, scal_s, False)):
+            r, t = k2_starts[label]
+            ms = timed(lambda: fd.bfgs_minimize(
+                terms, r, t, sc, pk, miniters, wm, async_ls=async_ls), reps)
+            pms = timed(lambda: fd.bfgs_minimize_plain(
+                terms, r, t, sc, pk, miniters, wm, async_ls=async_ls), 2)
+            out = fd.bfgs_minimize(terms, r, t, sc, pk, miniters, wm,
+                                   async_ls=async_ls)
+            li = pk.lane_lig.long()
+            frac = in_cutoff_fraction(out[3], pk, li, cut2)
+            stats = out[2]
+            # the least work of the function: a value for each rejected
+            # Armijo trial, a value and gradient for the start and each
+            # accepted one (stats row 2: trials, row 4: accepted)
+            ops = kernel_ops(stats[:, 2] - stats[:, 4], 1 + stats[:, 4], pk,
+                             li, frac)
+            nbytes = pack_bytes(pk, nl, m) + nl * 4 * (8 + 3 * pack.dims[0])
+            bms, bby = bound_ms(ops, nbytes)
+            name = f"bfgs_minimize{tag}/{label}"
+            rows.append(dict(
+                name=name, shape=f"L={nl}", ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=bby, launches=counts_.get(nl, 0),
+                replaces="gnina_tpu/ops/pallas_dock.py:"
+                         + ("860" if async_ls else "722"),
+                max_abs_err=errs[name]))
 
-    # K3: one window of the main path (S=128, tick budget 16)
+    # K3 and K6: one window of the main path (S=128, tick budget 16); K6's
+    # launches are those of the fused_warm_ls dock
     r, t = fx.packed_poses(rng, lanes, lo, hi, lig, m, dev, "random")
     ecur = torch.full((lanes,), 3.0e38, device=dev)
-    run3 = lambda: fd.async_mc_window(terms, r, t, scal_h, pack, ecur, 128,
-                                      16, miniters, seed=args.seed + 2)
-    ms = timed(run3, reps)
     gen = torch.Generator(device=dev)
-    pms = timed(lambda: fd.async_mc_window_plain(
-        terms, r, t, scal_h, pack, ecur, 128, 16, miniters,
-        generator=gen.manual_seed(args.seed + 2)), reps)
-    out = run3()
+    window_steps = {}
+    for warm_ls, name, n_launch, line in (
+            (False, "async_mc_window", launches["async_mc_window"], "1124"),
+            (True, "async_mc_window[warm_ls]", ln_k6["async_mc_window"],
+             "1150")):
+        run3 = lambda: fd.async_mc_window(
+            terms, r, t, scal_h, pack, ecur, 128, 16, miniters,
+            seed=args.seed + 2, warm_ls=warm_ls)
+        ms = timed(run3, reps)
+        pms = timed(lambda: fd.async_mc_window_plain(
+            terms, r, t, scal_h, pack, ecur, 128, 16, miniters,
+            generator=gen.manual_seed(args.seed + 2), warm_ls=warm_ls), 1)
+        out = run3()
+        frac = in_cutoff_fraction(out[3], pack, pack.lane_lig.long(), cut2)
+        # the least work of the function: a value and gradient for each
+        # candidate's mutated start (stats row 4, completed steps) and each
+        # accepted Armijo trial (row 3); a value for every other tick (row 2)
+        grads = out[2][:, 4] + out[2][:, 3]
+        ops = kernel_ops(torch.clamp(out[2][:, 2] - grads, min=0), grads,
+                         pack, pack.lane_lig.long(), frac)
+        nbytes = pack_bytes(pack, lanes, m) + lanes * 4 * (
+            8 + 3 * pack.dims[0] + 128 * (8 + m + 3))
+        bms, bby = bound_ms(ops, nbytes)
+        window_steps[name] = (int(out[2][:, 4].sum()),
+                              int(out[2][:, 3].sum()))
+        rows.append(dict(name=name, shape=f"L={lanes} S=128 b=16", ms=ms,
+                         plain_ms=pms, bound_ms=bms, bound_by=bby,
+                         launches=n_launch,
+                         replaces=f"gnina_tpu/ops/pallas_dock.py:{line}",
+                         max_abs_err=errs[name]))
+
+    # K5: one window of the lockstep dock (S=16, whole BFGS per step)
+    run5 = lambda: fd.lockstep_mc_window(terms, r, t, scal_h, pack, ecur, 16,
+                                         miniters, seed=args.seed + 2)
+    ms = timed(run5, reps)
+    pms = timed(lambda: fd.lockstep_mc_window_plain(
+        terms, r, t, scal_h, pack, ecur, 16, miniters,
+        generator=gen.manual_seed(args.seed + 2)), 1)
+    out = run5()
     frac = in_cutoff_fraction(out[3], pack, pack.lane_lig.long(), cut2)
-    # the least work of the function: a value and gradient for each
-    # candidate's mutated start (stats row 4, completed steps) and each
-    # accepted Armijo trial (row 3); a value for every other tick (row 2)
-    grads = out[2][:, 4] + out[2][:, 3]
-    ops = kernel_ops(torch.clamp(out[2][:, 2] - grads, min=0), grads, pack,
+    # the least work: a value and gradient for each step's mutated start
+    # and each accepted line-search step (stats row 4), a value for every
+    # other trial (row 2)
+    ops = kernel_ops(out[2][:, 2] - out[2][:, 4], 16 + out[2][:, 4], pack,
                      pack.lane_lig.long(), frac)
     nbytes = pack_bytes(pack, lanes, m) + lanes * 4 * (
-        8 + 3 * pack.dims[0] + 128 * (8 + m + 3))
+        8 + 3 * pack.dims[0] + 16 * (8 + m + 3))
     bms, bby = bound_ms(ops, nbytes)
-    rows.append(dict(name="async_mc_window", shape=f"L={lanes} S=128 b=16",
+    rows.append(dict(name="lockstep_mc_window", shape=f"L={lanes} S=16",
                      ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                     launches=launches["async_mc_window"],
-                     replaces="gnina_tpu/ops/pallas_dock.py:1124",
-                     max_abs_err=errs["async_mc_window"]))
+                     launches=ln_k5["lockstep_mc_window"],
+                     replaces="gnina_tpu/ops/pallas_dock.py:1290",
+                     max_abs_err=errs["lockstep_mc_window"]))
+
+    # K7: K1's launch with the gradient laid into the coordinate rows; its
+    # launches on the main path are K1's (the rescore returns the gradient
+    # debug_grad exposes)
+    r, t = k1_poses["perturbed"]
+    k1 = rows[0]
+    rows.append(dict(
+        name="debug_grad", shape=f"L={out_lanes}",
+        ms=timed(lambda: fd.debug_grad(terms, r, t, scal_r, pack_out), reps),
+        plain_ms=timed(lambda: fd.eval_fg_plain(terms, r, t, scal_r,
+                                                pack_out), reps),
+        bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+        launches=k1["launches"],
+        replaces="gnina_tpu/ops/pallas_dock.py:960",
+        max_abs_err=errs["debug_grad"]))
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} not on the main path")
         print(f"[6] {row['name']} {row['shape']}: {row['ms']:.3f} ms "
               f"(plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f}"
               f" ms by {row['bound_by']}), {row['launches']} launches per "
               f"dock_batch; no single PyTorch call computes it", flush=True)
+
+    print("[6] one window of 128 steps x 16 ticks from the same starts and "
+          "seed: " + "; ".join(
+              f"{k} completed {v[0]} of {128 * lanes} steps with {v[1]} "
+              f"accepted line-search steps" for k, v in window_steps.items()),
+          flush=True)
 
     # ---- 7. where one dock_batch spends the card's time -------------------
     pwall, busy, n_other = trace_dock(

@@ -1,14 +1,18 @@
 """gnina_tpu_torch: the PyTorch/CUDA port of gnina_tpu for one NVIDIA H100.
 
 A second package beside the JAX one.  It imports torch and numpy, never
-jax and never gnina_tpu.  This slice ports the default docking route,
-`DockingEngine.dock_batch` with `cnn_scoring="none"`, whose kernels (the
-fused value+gradient, truncated BFGS and in-kernel Monte Carlo) are
-hand-written CUDA for sm_90a in csrc/fused_dock.cu, built on first CUDA use.
+jax and never gnina_tpu.  Ported so far: the fused docking route,
+`DockingEngine.dock_batch`, in every search setting, whose kernels (the
+fused value+gradient, truncated BFGS in both line-search modes, and the
+async and lockstep in-kernel Monte Carlo) are hand-written CUDA for sm_90a
+in csrc/fused_dock.cu, built on first CUDA use; and the CNN rescore
+(models/, ops/voxelize.py), whose convolutions and matrix products are
+library calls as in the JAX package.
 
 Float32 matmuls and convolutions run in full float32: TF32 is switched off
 here, at the package's entry, because the pose math (FK origins, RMSD Gram
-matrices) loses ~0.06 A at TF32/bf16 input precision.
+matrices) loses ~0.06 A at TF32/bf16 input precision and the CNN scores
+must match the reference to three decimals.
 """
 
 import torch

@@ -1,7 +1,8 @@
 """Carry the JAX package's docking inputs into this package's objects.
 
-The docking path has no learned weights: its parameters are the scoring
-function's term table and the per-ligand torsion tree.  These functions
+The docking search has no learned weights: its parameters are the scoring
+function's term table and the per-ligand torsion tree; the CNN rescore's
+are a converted model's op list and weight arrays.  These functions
 take them as numpy arrays or python floats (as gnina_tpu holds them) and
 return the port's objects, so a JAX call and its port counterpart can be
 fed the very same inputs.  Nothing here imports gnina_tpu.
@@ -70,3 +71,15 @@ def receptor_from_numpy(coords, types, charges, name: str = "") -> Receptor:
                  for t, c in zip(types, coords)]
     return Receptor(mol=mol, coords=coords, types=types,
                     charges=np.asarray(charges, np.float32))
+
+
+def cnn_model_from_numpy(spec: dict, params: dict, name: str = "model",
+                         device=None):
+    """A models.registry.CNNModel from a converted model's spec (the op
+    list with its metadata, as the JAX package's CNNModel.spec holds it)
+    and its parameters as numpy arrays, on `device` (None: the card)."""
+    from gnina_tpu_torch.models.registry import model_from_spec
+
+    return model_from_spec(name, spec, {k: np.asarray(v)
+                                        for k, v in params.items()},
+                           device=device)

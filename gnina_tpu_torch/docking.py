@@ -6,13 +6,20 @@ Pipeline for a batch of ligands against one receptor and box:
   chain heads -> windows of in-kernel MC (K3) with sub-window full-v
   refines (K2) and one batched container merge per window -> per-ligand
   merge -> five slope-escalation refine stages (K2, one lane per saved
-  pose) -> exact rescore + conf-independent terms -> sort, dedup.
+  pose) -> exact rescore + conf-independent terms -> CNN rescore of every
+  saved pose (when the engine holds a scorer) -> sort, dedup.
+
+The search settings select the kernel modes as in the JAX package:
+fused_async_mc=False runs lockstep windows (K5, at most 16 steps each),
+fused_mc_in_kernel=False the host-driven step loop (mc_fused.fused_mc_chunk
+over K2), fused_async_ls the per-pose tick line search (K4) in every BFGS,
+fused_warm_ls the warm-started line search of the async window (K6).
 
 The fused route is the route on every device: kernels on `cuda`, their
 plain versions on `cpu` (only when the caller asks for the CPU).  Jobs it
 does not take (flex residues, covalent, user grids, non-vina terms, CNN in
-the loop, fused_search="off") raise NotImplementedError: their general path
-is not ported yet (ROADMAP.md, Queue 1).
+the loop, fused_search="off", fused_done_frac < 1) raise
+NotImplementedError: they are not ported yet (ROADMAP.md, Queues 1 and 2).
 """
 
 from __future__ import annotations
@@ -149,33 +156,33 @@ def _minimize_iters_heuristic(lig: LigandStruct, settings: DockSettings) -> int:
 
 
 class DockingEngine:
-    """Docking on one device through the fused kernels."""
+    """Docking on one device through the fused kernels.
+
+    cnn_scorer: a models.scorer.CNNScorer, or None.  Without one the engine
+    docks without a CNN whatever cnn_scoring says (scores 0.0, sort `auto`
+    -> Energy), as the JAX engine does."""
 
     def __init__(self, settings: DockSettings = DockSettings(),
-                 sf: Optional[ScoringFunction] = None, device=None):
+                 sf: Optional[ScoringFunction] = None, cnn_scorer=None,
+                 device=None):
         self.settings = settings
         self.sf = sf if sf is not None else get_scoring_function(settings.scoring)
+        self.cnn = cnn_scorer
         self.device = resolve_device(device)
 
     # -- eligibility ----------------------------------------------------------
 
     def _fused_eligible(self, ligs) -> None:
         """Raise NotImplementedError for a job the fused route does not
-        take: vina-family scoring, ligand-only, no CNN (the rescore is the
-        next slice's, CNN in the loop the general path's)."""
+        take: vina-family scoring, ligand-only, the CNN at most as a
+        rescore (CNN in the loop is the general path's)."""
         s = self.settings
         if s.fused_search == "off":
             raise NotImplementedError(f"fused_search='off' {_GENERAL_PATH}")
         if fd.extract_vina_terms(self.sf) is None:
             raise NotImplementedError(
                 f"scoring function {self.sf.name!r} {_GENERAL_PATH}")
-        if s.cnn_scoring == "rescore" or s.sort_order in ("CNNscore",
-                                                           "CNNaffinity"):
-            raise NotImplementedError(
-                f"cnn_scoring={s.cnn_scoring!r}, sort_order="
-                f"{s.sort_order!r}: the CNN rescore is not ported yet "
-                f"(ROADMAP.md, Queue 1: CNN rescore); use cnn_scoring='none'")
-        if s.cnn_scoring != "none":
+        if s.cnn_scoring not in ("none", "rescore"):
             raise NotImplementedError(
                 f"cnn_scoring={s.cnn_scoring!r} (CNN in the loop) "
                 f"{_GENERAL_PATH}")
@@ -185,13 +192,11 @@ class DockingEngine:
                 "port's kernels take their shapes at run time")
         if s.simple_ascent or s.minimize_single_full:
             raise NotImplementedError(f"the testing minimizers {_GENERAL_PATH}")
-        if (not s.fused_mc_in_kernel or not s.fused_async_mc
-                or s.fused_async_ls or s.fused_warm_ls
-                or s.fused_done_frac < 1.0):
+        if s.fused_done_frac < 1.0:
             raise NotImplementedError(
-                "lockstep in-kernel MC, per-lane async line search, warm "
-                "line search and done_frac < 1 are kernel modes still to "
-                "port (ROADMAP.md, Queue 2: K4-K6, done_frac)")
+                "fused_done_frac < 1 stops a lockstep loop on a share of one "
+                "TPU block's 128 lanes; its counterpart for one thread block "
+                "per pose is still to port (ROADMAP.md, Queue 2: done_frac)")
         for l in ligs:
             if l.num_lig_atoms not in (-1, l.num_atoms):
                 raise NotImplementedError(f"flex residues {_GENERAL_PATH}")
@@ -199,6 +204,10 @@ class DockingEngine:
                 raise NotImplementedError(f"flex pairs {_GENERAL_PATH}")
             if not l.has_rigid_dof:
                 raise NotImplementedError(f"covalent ligands {_GENERAL_PATH}")
+
+    @property
+    def _has_cnn(self) -> bool:
+        return self.cnn is not None and self.settings.cnn_scoring != "none"
 
     # -- score-only ---------------------------------------------------------
 
@@ -240,10 +249,14 @@ class DockingEngine:
             coords = fk.fk_coords(pad_ligand(lig, n, m, p, device=dev), conf,
                                   max_layers)
         t = lig.num_torsions
+        coords = coords.cpu().numpy()[:lig.num_atoms]
+        cnnscore = cnnaff = cnnvar = 0.0
+        if self._has_cnn:
+            cnnscore, cnnaff, cnnvar = self.cnn.score_pose(rec, lig, coords)
         return PoseResult(
             energy=float(self._conf_independent(lig, float(inter[0]))),
-            intramol=float(intra[0]), cnnscore=0.0, cnnaffinity=0.0,
-            cnnvariance=0.0, coords=coords.cpu().numpy()[:lig.num_atoms],
+            intramol=float(intra[0]), cnnscore=cnnscore, cnnaffinity=cnnaff,
+            cnnvariance=cnnvar, coords=coords,
             conf_position=conf.position.cpu().numpy(),
             conf_orientation=conf.orientation.cpu().numpy(),
             conf_torsions=conf.torsions.cpu().numpy()[:t])
@@ -306,26 +319,35 @@ class DockingEngine:
         # window schedule: the JAX package's arithmetic (docking.py:994-1051)
         base_chunk = int(s.mc_chunk_steps) or num_steps
         chunk = min(num_steps, max(32, base_chunk * 128 // max(lanes, 128)))
-        mcs = max(int(s.fused_mc_steps) or 16, 1)
-        mcs = min(mcs, max(num_steps // 8, 16))
-        mcs = _async_mc_steps_guard(mcs, m)
-        chunk = max(((chunk + mcs - 1) // mcs) * mcs, mcs)
+        mcs = 0
+        if s.fused_mc_in_kernel:
+            mcs = max(int(s.fused_mc_steps) or 16, 1)
+            if not s.fused_async_mc:
+                mcs = min(mcs, 16)  # lockstep windows stay at 16 steps
+            mcs = min(mcs, max(num_steps // 8, 16))
+            if s.fused_async_mc:
+                mcs = _async_mc_steps_guard(mcs, m)
+            chunk = max(((chunk + mcs - 1) // mcs) * mcs, mcs)
         r_every = int(s.fused_refine_every) or max(32, num_steps // 16)
         refine_subs = max(1, mcs // max(r_every, 1))
         while mcs % refine_subs:
             refine_subs -= 1
 
         common = dict(num_trials=s.fused_ls_trials,
-                      ls_factor=s.fused_ls_factor)
+                      ls_factor=s.fused_ls_factor, async_ls=s.fused_async_ls)
         fused_ref = fd.FusedBfgs(self.sf, pack, miniters, want_metro=True,
                                  **common)
         fused_out = fd.FusedBfgs(self.sf, pack_out, miniters,
                                  want_metro=False, **common)
-        fused_mc = fd.FusedBfgs(self.sf, pack, miniters, want_metro=True,
-                                mc_steps=mcs,
-                                tick_budget=s.fused_mc_tick_budget, **common)
+        fused_mc = None
+        if s.fused_mc_in_kernel:
+            fused_mc = fd.FusedBfgs(
+                self.sf, pack, miniters, want_metro=True, mc_steps=mcs,
+                tick_budget=s.fused_mc_tick_budget,
+                async_mc=s.fused_async_mc, warm_ls=s.fused_warm_ls, **common)
         mcpar = mc.MCParams(temperature=s.temperature,
-                            num_saved_mins=num_out)
+                            num_saved_mins=num_out,
+                            refine_stride=s.refine_stride)
         hc = mcpar.hunt_cap
         slope = 1e3
         scal_h = fd.scal_vector(hc[0], hc[1], slope, 1000.0, lo, hi,
@@ -342,9 +364,14 @@ class DockingEngine:
                                device=dev)
             done = 0
             while done < num_steps:
-                carry = mc_fused.fused_mc_chunk_inkernel(
-                    carry, gen, chunk, fused_mc, fused_ref, pack, scal_h,
-                    scal_f, meta, mcpar, m - 1, refine_subs=refine_subs)
+                if fused_mc is not None:
+                    carry = mc_fused.fused_mc_chunk_inkernel(
+                        carry, gen, chunk, fused_mc, fused_ref, pack, scal_h,
+                        scal_f, meta, mcpar, m - 1, refine_subs=refine_subs)
+                else:
+                    carry = mc_fused.fused_mc_chunk(
+                        carry, gen, chunk, fused_ref, pack, scal_h, scal_f,
+                        meta, mcpar, m - 1)
                 done += chunk
 
             # merge: per-ligand top num_out over all chains (min_rmsd 2)
@@ -378,47 +405,78 @@ class DockingEngine:
                 mdone = mdone | new_done
 
             results = self._rescore_and_assemble(
-                ligs, rigid, tors, menergy, pack_out, lo, hi, n, m, p,
+                rec, ligs, rigid, tors, menergy, pack_out, lo, hi, n, m, p,
                 max_layers, num_out)
         return results
 
-    def _rescore_and_assemble(self, ligs, rigid, tors, menergy, pack_out,
-                              lo, hi, n, m, p, max_layers, num_out):
+    def _rescore_and_assemble(self, rec, ligs, rigid, tors, menergy,
+                              pack_out, lo, hi, n, m, p, max_layers,
+                              num_out):
         """Exact rescore (always the empirical affinity, main.cpp:336-343)
-        through K1, conf-independent terms, then per-ligand sort and
-        dedup."""
+        through K1, conf-independent terms, one batched CNN rescore of
+        every valid pose of every ligand (when the engine holds a scorer),
+        then per-ligand sort and dedup."""
         s = self.settings
         dev = self.device
         inter, intra = self._exact_energies(rigid, tors, pack_out, lo, hi,
                                             1e3)
         conf_all = fd.packed_to_conf(rigid, tors, m - 1)
         menergy = menergy.cpu().numpy()
-        all_results: List[List[PoseResult]] = []
+        per_lig = []
         for li, lig in enumerate(ligs):
             sl = slice(li * num_out, (li + 1) * num_out)
             conf = Conf(*[x[sl] for x in conf_all])
             lig_d = pad_ligand(lig, n, m, p, device=dev)
             coords = fk.fk_coords(lig_d, conf, max_layers).cpu().numpy()
+            valid_ids = [i for i in range(num_out) if menergy[li, i] < MAX_FL]
+            per_lig.append((sl, conf, coords[:, :lig.num_atoms], valid_ids))
+
+        # ONE ensemble pass covers every valid pose of every ligand
+        multi_scores = None
+        if self._has_cnn:
+            items = [(lig, coords[valid_ids])
+                     for lig, (_, _, coords, valid_ids) in zip(ligs, per_lig)
+                     if valid_ids]
+            if items:
+                multi_scores = iter(self.cnn.score_poses_multi(rec, items))
+
+        all_results: List[List[PoseResult]] = []
+        for lig, (sl, conf, coords, valid_ids) in zip(ligs, per_lig):
             pos = conf.position.cpu().numpy()
             quat = conf.orientation.cpu().numpy()
             trs = conf.torsions.cpu().numpy()
-            valid = menergy[li] < MAX_FL
             energies = self._conf_independent(lig, inter[sl])
+            cnn_scores = {}
+            if valid_ids and multi_scores is not None:
+                sc, aff, _loss, var = next(multi_scores)
+                cnn_scores = {i: (float(sc[j]), float(aff[j]), float(var[j]))
+                              for j, i in enumerate(valid_ids)}
             t = lig.num_torsions
-            results = [PoseResult(
-                energy=float(energies[i]), intramol=float(intra[sl][i]),
-                cnnscore=0.0, cnnaffinity=0.0, cnnvariance=0.0,
-                coords=coords[i][:lig.num_atoms], conf_position=pos[i],
-                conf_orientation=quat[i], conf_torsions=trs[i][:t])
-                for i in range(num_out) if valid[i]]
+            results = []
+            for i in valid_ids:
+                cnnscore, cnnaff, cnnvar = cnn_scores.get(i, (0.0, 0.0, 0.0))
+                results.append(PoseResult(
+                    energy=float(energies[i]), intramol=float(intra[sl][i]),
+                    cnnscore=cnnscore, cnnaffinity=cnnaff,
+                    cnnvariance=cnnvar, coords=coords[i],
+                    conf_position=pos[i], conf_orientation=quat[i],
+                    conf_torsions=trs[i][:t]))
             results = self._sort(results)
             results = self._remove_redundant(results, lig)
             all_results.append(results[: s.num_modes])
         return all_results
 
     def _sort(self, results: List[PoseResult]) -> List[PoseResult]:
-        # auto -> Energy: this route carries no CNN scorer, and
-        # _fused_eligible refuses the CNN sort orders
+        """auto -> CNNscore when a scorer rescored, else Energy.  Sorts are
+        stable: on equal keys (the 0.0 scores of a run without a scorer)
+        the order of the container stays."""
+        order = self.settings.sort_order
+        if order == "auto":
+            order = "CNNscore" if self._has_cnn else "Energy"
+        if order == "CNNscore":
+            return sorted(results, key=lambda r: -r.cnnscore)
+        if order == "CNNaffinity":
+            return sorted(results, key=lambda r: -r.cnnaffinity)
         return sorted(results, key=lambda r: r.energy)
 
     def _remove_redundant(self, results: List[PoseResult],

@@ -1,0 +1,304 @@
+"""CNN ensemble scoring of poses (CNNTorchScorer equivalent).
+
+reference: gninasrc/lib/cnn_torch_scorer.cpp:105-232, torch_model.cpp:153-224.
+Counterpart of the JAX package's gnina_tpu/models/scorer.py:
+- poses are scored in BATCHES: one voxelization + one conv3d forward per
+  (model-group, rotation) over all poses of a chunk at once;
+- models sharing the same typer/grid settings share voxelized grids;
+- the receptor and the ligand are voxelized apart and added (densities are
+  additive and their channel ranges disjoint), the receptor through the
+  x-sorted per-slab atom window.
+
+CNN losses as minimisation objectives (make_loss_fn*) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gnina_tpu_torch.chem.ingest import Receptor
+from gnina_tpu_torch.chem.tree_build import LigandStruct
+from gnina_tpu_torch.device import resolve_device
+from gnina_tpu_torch.models.registry import CNNModel, expand_model_names, \
+    load_model
+from gnina_tpu_torch.ops.quat import quaternion_to_matrix, random_orientation
+from gnina_tpu_torch.ops.voxelize import slab_window_size, voxelize_batch, \
+    voxelize_windowed
+
+# pose-axis chunk of the batched rescore: bounds the voxelizer's (poses,
+# grid-slab, atoms) intermediate and keeps one forward shape
+MAX_POSE_BATCH = 128
+
+
+def _pose_from_outputs(model: CNNModel, outputs):
+    out0 = outputs[0]  # (B,2): log-probs for standard models
+    if model.skip_softmax:
+        pose = out0[:, 1]
+    else:
+        pose = torch.softmax(out0, dim=1)[:, 1]
+    affinity = outputs[1] if len(outputs) > 1 else torch.zeros_like(pose)
+    if affinity.dim() == 0:
+        affinity = affinity[None]
+    if model.apply_logistic_loss:
+        loss = -torch.log(torch.clamp(out0[:, 1], min=1e-30))
+    else:
+        # torch cross_entropy applies log_softmax to its input; the model
+        # output is already log_softmax-ed, so the reference effectively
+        # double-normalizes (torch_model.cpp:196) — reproduce exactly.
+        loss = -torch.log_softmax(out0, dim=1)[:, 1]
+    return pose, affinity, loss
+
+
+class CNNScorer:
+    """Scores ligand poses against a rigid receptor with a CNN ensemble.
+
+    model_names: registry names or ensemble shorthands (None: the default
+    three-model ensemble); models: ready CNNModel objects instead.  device
+    None means the card."""
+
+    def __init__(self, model_names: Optional[Sequence[str]] = None,
+                 rotations: int = 0, seed: int = 0,
+                 center: Optional[np.ndarray] = None, device=None,
+                 models: Optional[Sequence[CNNModel]] = None,
+                 models_dir: Optional[str] = None):
+        self.device = resolve_device(device)
+        if models is not None:
+            self.models: List[CNNModel] = list(models)
+        else:
+            names = expand_model_names(list(model_names or []))
+            self.models = [load_model(n, device=self.device,
+                                      models_dir=models_dir) for n in names]
+        self.rotations = max(rotations, 1)
+        self.seed = seed
+        self.fixed_center = center
+
+    # -- host-side preparation ------------------------------------------------
+
+    def _receptor_arrays(self, rec: Receptor, centers: np.ndarray):
+        """Prune receptor to the union of pose grid boxes and pad."""
+        max_dim = max(m.dimension for m in self.models)
+        margin = max_dim / 2 + 4.0
+        lo = centers.min(axis=0) - margin
+        hi = centers.max(axis=0) + margin
+        keep = np.all((rec.coords >= lo) & (rec.coords <= hi), axis=1)
+        coords = rec.coords[keep]
+        types = rec.types[keep]
+        k = max(((len(types) + 255) // 256) * 256, 256)
+        pad = k - len(types)
+        return (np.pad(coords, ((0, pad), (0, 0))).astype(np.float32),
+                np.pad(types, (0, pad)).astype(np.int64),
+                np.pad(np.ones(len(types), bool), (0, pad)))
+
+    # -- main scoring ----------------------------------------------------------
+
+    def score_poses(self, rec: Receptor, lig: LigandStruct,
+                    coords_batch: np.ndarray):
+        """Score (B,N,3) ligand pose coordinates.
+
+        Returns (score (B,), affinity (B,), loss (B,), variance (B,)).
+        """
+        coords_batch = np.asarray(coords_batch, np.float32)
+        if coords_batch.ndim == 2:
+            coords_batch = coords_batch[None]
+        return self.score_poses_multi(rec, [(lig, coords_batch)])[0]
+
+    def prepare_multi(self, rec: Receptor, items):
+        """The padded arrays of one score_poses_multi call, on the host:
+        dict(coords (Bp, Np, 3), types, mask, centers, sizes, b, bp, rec
+        (coords, types, mask) sorted by x, win)."""
+        sizes = [np.asarray(c).shape[0] for _l, c in items]
+        n_atoms_max = max(np.asarray(c).shape[1] for _l, c in items)
+        np_pad = ((n_atoms_max + 7) // 8) * 8
+        b = sum(sizes)
+        coords_p = np.zeros((b, np_pad, 3), np.float32)
+        types_p = np.zeros((b, np_pad), np.int64)
+        mask_p = np.zeros((b, np_pad), bool)
+        centers = np.zeros((b, 3), np.float32)
+        off = 0
+        for (lig, cb), bi in zip(items, sizes):
+            cb = np.asarray(cb, np.float32)
+            ni = cb.shape[1]
+            coords_p[off:off + bi, :ni] = cb
+            types_p[off:off + bi, :ni] = lig.types[:ni]
+            mask_p[off:off + bi, :ni] = True
+            if self.fixed_center is not None:
+                centers[off:off + bi] = np.asarray(self.fixed_center,
+                                                   np.float32)
+            else:
+                # grid center per pose: mean over all ligand atoms
+                # (libmolgrid CoordinateSet::center, hydrogens included)
+                centers[off:off + bi] = cb.mean(axis=1)
+            off += bi
+
+        # the pose axis is chunked at MAX_POSE_BATCH and padded to a whole
+        # number of chunks by repeating the last pose
+        bp = min(1 << (b - 1).bit_length(), MAX_POSE_BATCH)
+        pad_to = -b % bp
+        if pad_to:
+            coords_p = np.concatenate(
+                [coords_p, np.tile(coords_p[-1:], (pad_to, 1, 1))])
+            types_p = np.concatenate(
+                [types_p, np.tile(types_p[-1:], (pad_to, 1))])
+            mask_p = np.concatenate(
+                [mask_p, np.tile(mask_p[-1:], (pad_to, 1))])
+            centers = np.concatenate(
+                [centers, np.tile(centers[-1:], (pad_to, 1))])
+
+        rec_coords, rec_types, rec_mask = self._receptor_arrays(
+            rec, centers[:b])
+        # sort receptor rows by x and push masked padding to the far end:
+        # the receptor is voxelized through a per-slab atom window
+        # (ops/voxelize.voxelize_windowed), which needs sorted x and a
+        # window width (computed here)
+        sort_x = np.where(rec_mask, rec_coords[:, 0], np.float32(1e9))
+        order = np.argsort(sort_x, kind="stable")
+        rec_coords = rec_coords[order]
+        rec_types = rec_types[order]
+        rec_mask = rec_mask[order]
+        max_reach = max(
+            1.5 * float(np.max(m.rec_typer.radii)) * m.radius_scale
+            + m.resolution for m in self.models)
+        win = slab_window_size(np.where(rec_mask, rec_coords[:, 0], 1e9),
+                               max_reach)
+        return dict(coords=coords_p, types=types_p, mask=mask_p,
+                    centers=centers, sizes=sizes, b=b, bp=bp,
+                    rec=(rec_coords, rec_types, rec_mask), win=win)
+
+    def score_poses_multi(self, rec: Receptor, items):
+        """Score poses of SEVERAL (possibly different) ligands in one
+        batched ensemble pass.
+
+        items: list of (LigandStruct, (Bi, Ni, 3) pose coords).  Ligand
+        atom types are per-pose data, so a whole screen batch's rescore is
+        one pass per chunk of MAX_POSE_BATCH poses.  Returns a list of
+        (score, affinity, loss, variance) per item, numpy arrays."""
+        prep = self.prepare_multi(rec, items)
+        dev = self.device
+        rec_c, rec_t, rec_m = (torch.as_tensor(x, device=dev)
+                               for x in prep["rec"])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(self.seed))
+        outs = []
+        bp = prep["bp"]
+        with torch.no_grad():
+            for c0 in range(0, prep["coords"].shape[0], bp):
+                sl = slice(c0, c0 + bp)
+                outs.append(self.ensemble_forward(
+                    rec_c, rec_t, rec_m,
+                    torch.as_tensor(prep["coords"][sl], device=dev),
+                    torch.as_tensor(prep["types"][sl], device=dev),
+                    torch.as_tensor(prep["mask"][sl], device=dev),
+                    torch.as_tensor(prep["centers"][sl], device=dev),
+                    prep["win"], gen))
+        score, affinity, loss, variance = (
+            torch.cat([o[i] for o in outs]).cpu().numpy() for i in range(4))
+        out = []
+        off = 0
+        for bi in prep["sizes"]:
+            out.append((score[off:off + bi], affinity[off:off + bi],
+                        loss[off:off + bi], variance[off:off + bi]))
+            off += bi
+        return out
+
+    def score_pose(self, rec: Receptor, lig: LigandStruct, coords: np.ndarray
+                   ) -> Tuple[float, float, float]:
+        """Single pose -> (score, affinity, variance); DLScorer::score shape."""
+        s, a, _l, v = self.score_poses(rec, lig, coords[None])
+        return float(s[0]), float(a[0]), float(v[0])
+
+    @property
+    def max_dimension(self) -> float:
+        return max(m.dimension for m in self.models)
+
+    # -- the ensemble program ---------------------------------------------------
+
+    def _groups(self):
+        """Model indices grouped by voxelization settings."""
+        groups = {}
+        for mi, m in enumerate(self.models):
+            gkey = (m.rec_typer.num_channels, m.lig_typer.num_channels,
+                    m.resolution, m.dimension, m.radius_scale,
+                    tuple(m.rec_typer.table), tuple(m.lig_typer.table))
+            groups.setdefault(gkey, []).append(mi)
+        return list(groups.values())
+
+    def voxelize_group(self, m0: CNNModel, rec_coords, rec_types, rec_mask,
+                       lig_coords_b, lig_types_b, lig_mask_b, centers,
+                       win: int, rotation=None):
+        """(B, C, n, n, n) grids of one pose chunk under model m0's
+        voxelization settings.  rotation None: the receptor through the
+        x-sorted window (when win) plus the ligand; else (B, 3, 3)
+        matrices that turn each complex about its grid center, everything
+        through the plain voxelizer."""
+        dev = centers.device
+        nrec = m0.rec_typer.num_channels
+        rec_chan = torch.as_tensor(m0.rec_typer.table, device=dev)[rec_types]
+        rec_radii = torch.as_tensor(m0.rec_typer.radii, dtype=torch.float32,
+                                    device=dev)[rec_types]
+        lig_chan_raw = torch.as_tensor(m0.lig_typer.table,
+                                       device=dev)[lig_types_b]
+        lig_chan = torch.where(lig_chan_raw >= 0, lig_chan_raw + nrec, -1)
+        lig_radii = torch.as_tensor(m0.lig_typer.radii, dtype=torch.float32,
+                                    device=dev)[lig_types_b]
+        kw = dict(num_channels=m0.num_channels, npoints=m0.grid_points,
+                  resolution=m0.resolution, radius_scale=m0.radius_scale)
+        b = centers.shape[0]
+        if rotation is None and win:
+            grids = voxelize_windowed(rec_coords, rec_chan, rec_radii,
+                                      rec_mask, centers, window=win, **kw)
+            return grids + voxelize_batch(lig_coords_b, lig_chan, lig_radii,
+                                          lig_mask_b, centers, **kw)
+        rec_xyz = rec_coords[None].expand(b, -1, -1)
+        lig_xyz = lig_coords_b
+        if rotation is not None:
+            c = centers[:, None]
+            rt = rotation.transpose(1, 2)
+            rec_xyz = torch.bmm(rec_xyz - c, rt) + c
+            lig_xyz = torch.bmm(lig_xyz - c, rt) + c
+        k = rec_coords.shape[0]
+        return voxelize_batch(
+            torch.cat([rec_xyz, lig_xyz], 1),
+            torch.cat([rec_chan[None].expand(b, k), lig_chan], 1),
+            torch.cat([rec_radii[None].expand(b, k), lig_radii], 1),
+            torch.cat([rec_mask[None].expand(b, k), lig_mask_b], 1),
+            centers, **kw)
+
+    def ensemble_forward(self, rec_coords, rec_types, rec_mask, lig_coords_b,
+                         lig_types_b, lig_mask_b, centers, win: int,
+                         generator: torch.Generator):
+        """One pose chunk through every (model group, rotation): returns
+        (score, affinity, loss, variance), each (B,); the variance is over
+        models x rotations.  Rotation 0 is the identity; the others draw
+        one random orientation per pose from `generator`, which lives on
+        the tensors' device."""
+        b = lig_coords_b.shape[0]
+        dev = centers.device
+        scores, affinities, losses = [], [], []
+        for model_ids in self._groups():
+            m0 = self.models[model_ids[0]]
+            for r in range(self.rotations):
+                rot = None
+                if r > 0:
+                    rot = quaternion_to_matrix(
+                        random_orientation((b,), generator, dev))
+                grids = self.voxelize_group(
+                    m0, rec_coords, rec_types, rec_mask, lig_coords_b,
+                    lig_types_b, lig_mask_b, centers, win, rot)
+                for mi in model_ids:
+                    m = self.models[mi]
+                    pose, aff, loss = _pose_from_outputs(m, m.module(grids))
+                    scores.append(pose)
+                    affinities.append(aff)
+                    losses.append(loss)
+        score = torch.mean(torch.stack(scores), dim=0)
+        affs = torch.stack(affinities)       # (M*R, B)
+        affinity = torch.mean(affs, dim=0)
+        loss = torch.mean(torch.stack(losses), dim=0)
+        if affs.shape[0] > 1:
+            variance = torch.mean((affs - affinity[None]) ** 2, dim=0)
+        else:
+            variance = torch.zeros_like(affinity)
+        return score, affinity, loss, variance

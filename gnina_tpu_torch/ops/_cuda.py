@@ -72,12 +72,17 @@ def lib() -> ctypes.CDLL:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         so.gt_eval_fg.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
         so.gt_bfgs_minimize.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf,
-                                        vp, vp, vp, vp, vp]
+                                        ci, vp, vp, vp, vp, vp]
         so.gt_async_mc_window.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                           ctypes.c_uint32, ci, ci, ci, ci,
-                                          cf, vp, vp, vp, vp, vp, vp, vp, vp]
+                                          cf, ci, vp, vp, vp, vp, vp, vp, vp,
+                                          vp]
+        so.gt_lockstep_mc_window.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                             ctypes.c_uint32, ci, ci, ci, cf,
+                                             ci, vp, vp, vp, vp, vp, vp, vp,
+                                             vp]
         for fn in (so.gt_eval_fg, so.gt_bfgs_minimize,
-                   so.gt_async_mc_window):
+                   so.gt_async_mc_window, so.gt_lockstep_mc_window):
             fn.restype = ci
         so.gt_error_string.argtypes = [ci]
         so.gt_error_string.restype = ctypes.c_char_p

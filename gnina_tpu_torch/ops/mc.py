@@ -1,4 +1,5 @@
-"""Monte Carlo bookkeeping: chain init and the top-N dedup pose container.
+"""Monte Carlo bookkeeping: chain init, the one-DOF mutation, Metropolis,
+and the top-N dedup pose container.
 
 Replaces monte_carlo.cpp + parallel_mc.cpp's host bookkeeping: the
 reference's `exhaustiveness` thread pool becomes a lane axis of chains, and
@@ -8,6 +9,9 @@ batched over a leading lane axis.
 
 Semantics mirrored from the reference:
 - random initial conformations in the box (conf.h:119-122,441-446)
+- mutate_conf picks ONE random DOF: +-2A translation, gyration-scaled
+  rotation, or torsion redraw (mutate.cpp:35-73); Metropolis at T=1.2
+  (monte_carlo.cpp:99-148)
 - RMSD-deduplicated top-N insert (coords.cpp:43-56) and the per-ligand
   merge of the chains' containers (parallel_mc.cpp:168-181)
 """
@@ -16,13 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from gnina_tpu_torch.constants import MAX_FL
+from gnina_tpu_torch.constants import EPSILON_FL, MAX_FL
 from gnina_tpu_torch.device import resolve_device
-from gnina_tpu_torch.ops.quat import random_orientation
+from gnina_tpu_torch.ops.quat import quaternion_increment, random_orientation
+from gnina_tpu_torch.types import Conf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +37,10 @@ class MCParams:
     min_rmsd: float = 1.0
     num_saved_mins: int = 50
     hunt_cap: tuple = (10.0, 10.0, 10.0)
+    # full-v refinement cadence of the host-driven chunk: the latest
+    # promising pose of each lane is refined every `refine_stride` steps
+    # (0 = never, rely on the final refine stages)
+    refine_stride: int = 4
 
 
 class PoseContainer(NamedTuple):
@@ -180,6 +189,104 @@ def merge_containers(conts: PoseContainer, heavy_mask, min_rmsd: float,
         for a in out])
 
 
+class MutationDraws(NamedTuple):
+    """The random numbers of one mutate_conf call per lane.  A caller that
+    supplies them (instead of a generator) decides every draw, so two
+    implementations can be fed the same numbers."""
+
+    which: torch.Tensor      # (L,) int64: 0 position, 1 orientation, 2+ torsion
+    pos_dir: torch.Tensor    # (L, 3) standard normal
+    pos_r: torch.Tensor      # (L,) uniform [0, 1)
+    rot_dir: torch.Tensor    # (L, 3) standard normal
+    rot_r: torch.Tensor      # (L,) uniform [0, 1)
+    new_tor: torch.Tensor    # (L,) uniform [-pi, pi)
+
+
+def draw_mutation(generator: torch.Generator, num_real_torsions,
+                  has_rigid_dof, device=None) -> MutationDraws:
+    """One lane-batch of mutation draws from `generator` (drawn on its
+    device, returned on `device`).  num_real_torsions (L,) int,
+    has_rigid_dof (L,) bool."""
+    device = resolve_device(device)
+    gdev = generator.device
+    f = dict(generator=generator, dtype=torch.float32, device=gdev)
+    nt = torch.as_tensor(num_real_torsions).to(gdev)
+    lanes = nt.shape[0]
+    lo = torch.where(torch.as_tensor(has_rigid_dof).to(gdev), 0, 2)
+    span = (nt + 2 - lo).to(torch.float32)
+    which = lo + torch.minimum(torch.floor(torch.rand(lanes, **f) * span),
+                               span - 1.0).long()
+    out = MutationDraws(
+        which=which, pos_dir=torch.randn((lanes, 3), **f),
+        pos_r=torch.rand(lanes, **f), rot_dir=torch.randn((lanes, 3), **f),
+        rot_r=torch.rand(lanes, **f),
+        new_tor=torch.rand(lanes, **f) * (2.0 * math.pi) - math.pi)
+    return MutationDraws(*[x.to(device) for x in out])
+
+
+def random_inside_sphere(direction, u):
+    """Uniform point in the unit ball: a standard-normal `direction`
+    (..., 3), normalised, times cbrt of the uniform `u` (...)."""
+    norm = torch.linalg.vector_norm(direction, dim=-1, keepdim=True)
+    d = direction / torch.clamp(norm, min=EPSILON_FL)
+    return (u ** (1.0 / 3.0))[..., None] * d
+
+
+def gyration_radius(coords, root_pos, lig_heavy_mask):
+    """Ligand heavy-atom gyration radius about the root origin
+    (model.cpp:1002): coords (L, N, 3), root_pos (L, 3), mask (L, N)."""
+    d2 = torch.sum((coords - root_pos[:, None]) ** 2, dim=-1)
+    cnt = torch.clamp(torch.sum(lig_heavy_mask, dim=-1), min=1)
+    return torch.sqrt(torch.sum(torch.where(lig_heavy_mask, d2, 0.0), dim=-1)
+                      / cnt)
+
+
+def mutate_conf(conf: Conf, gr, amplitude: float, num_real_torsions,
+                has_rigid_dof=True, draws: Optional[MutationDraws] = None,
+                generator: Optional[torch.Generator] = None) -> Conf:
+    """One-DOF mutation (mutate.cpp:35-73) of a lane-batch of confs.
+
+    gr (L,): each ligand's current gyration radius.  has_rigid_dof False
+    (covalent complexes) restricts the draw to torsions.  The random
+    numbers are `draws`, else drawn from `generator`."""
+    lanes, t = conf.torsions.shape
+    dev = conf.position.device
+    nt = torch.as_tensor(num_real_torsions, device=dev).expand(lanes)
+    rigid = torch.as_tensor(has_rigid_dof, device=dev).expand(lanes)
+    if draws is None:
+        if generator is None:
+            raise ValueError("mutate_conf needs draws or a generator")
+        draws = draw_mutation(generator, nt, rigid, device=dev)
+    which = draws.which
+    pos_new = conf.position + amplitude * random_inside_sphere(
+        draws.pos_dir, draws.pos_r)
+    # orientation mutation, scaled by the ligand's gyration radius
+    rot = (amplitude / torch.clamp(gr, min=EPSILON_FL))[:, None] \
+        * random_inside_sphere(draws.rot_dir, draws.rot_r)
+    quat_new = torch.where((gr > EPSILON_FL)[:, None],
+                           quaternion_increment(conf.orientation, rot),
+                           conf.orientation)
+    slot = torch.arange(t, device=dev)[None, :] == (which - 2)[:, None]
+    tors_new = torch.where(slot, draws.new_tor[:, None], conf.torsions)
+    return Conf(
+        position=torch.where((which == 0)[:, None], pos_new, conf.position),
+        orientation=torch.where((which == 1)[:, None], quat_new,
+                                conf.orientation),
+        torsions=torch.where((which >= 2)[:, None], tors_new, conf.torsions))
+
+
+def metropolis_accept(old_f, new_f, temperature: float, u=None,
+                      generator: Optional[torch.Generator] = None):
+    """new_f < old_f, or a uniform below exp((old_f - new_f) / T).  The
+    uniforms are `u` (L,), else drawn from `generator`."""
+    if u is None:
+        if generator is None:
+            raise ValueError("metropolis_accept needs u or a generator")
+        u = torch.rand(old_f.shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).to(old_f.device)
+    return (new_f < old_f) | (u < torch.exp((old_f - new_f) / temperature))
+
+
 def randomize_conf(lanes: int, corner1, corner2, t: int,
                    generator: torch.Generator, device=None):
     """Random position in box, random orientation, random torsions
@@ -208,6 +315,12 @@ class MCCarry(NamedTuple):
     best_e: torch.Tensor     # (L,)
     cont: PoseContainer      # (L, S, ...)
     coords: torch.Tensor     # (L, N, 3) heavy coords of the chain head
+    # the latest promising pose awaiting its full-v refinement at the next
+    # stride boundary of the host-driven chunk (MCParams.refine_stride)
+    pending_rigid: torch.Tensor        # (L, 8)
+    pending_tors: torch.Tensor         # (L, M)
+    pending_valid: torch.Tensor        # (L,) bool
+    pending_is_current: torch.Tensor   # (L,) bool: pending is the chain head
 
 
 def mc_init(lanes: int, m: int, params: MCParams, corner1, corner2,
@@ -217,7 +330,6 @@ def mc_init(lanes: int, m: int, params: MCParams, corner1, corner2,
     packed (rigid, tors) to heavy coords."""
     device = resolve_device(device)
     from gnina_tpu_torch.ops.fused_dock import conf_to_packed
-    from gnina_tpu_torch.types import Conf
 
     pos, quat, tors = randomize_conf(lanes, corner1, corner2, m - 1,
                                      generator, device)
@@ -229,4 +341,9 @@ def mc_init(lanes: int, m: int, params: MCParams, corner1, corner2,
                                      device=device),
                    cont=empty_container((lanes,), params.num_saved_mins,
                                         m - 1, n_heavy, device),
-                   coords=fk_fn(rigid, ptors))
+                   coords=fk_fn(rigid, ptors), pending_rigid=rigid,
+                   pending_tors=ptors,
+                   pending_valid=torch.zeros(lanes, dtype=torch.bool,
+                                             device=device),
+                   pending_is_current=torch.zeros(lanes, dtype=torch.bool,
+                                                  device=device))

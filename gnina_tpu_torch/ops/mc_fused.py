@@ -1,8 +1,9 @@
-"""Monte Carlo chunk driven by the in-kernel MC and BFGS kernels.
+"""Monte Carlo chunks driven by the fused kernels.
 
-The whole step loop (mutate + BFGS + Metropolis) runs inside K3
-(fused_dock.async_mc_window) for S = window steps per launch; the host-side
-bookkeeping per window is:
+fused_mc_chunk_inkernel: the whole step loop (mutate + BFGS + Metropolis)
+runs inside K3 (fused_dock.async_mc_window) or, with async_mc off, K5
+(fused_dock.lockstep_mc_window) for S = window steps per launch; the
+host-side bookkeeping per window is:
   1. pick the best accepted candidate of each of the `refine_subs`
      sub-windows and refine it at full v through K2 (the reference's
      in-loop promising-pose refinement, monte_carlo.cpp:120-135);
@@ -11,11 +12,16 @@ bookkeeping per window is:
      (mc.batch_merge_candidates);
   3. continue the chain from the refined pose when the refined candidate
      is still the chain head (monte_carlo.cpp:128 semantics).
+
+fused_mc_chunk: the host drives every step (fused_mc_in_kernel off):
+mutate, one K2/K4 minimisation at the hunt caps, Metropolis, the
+promising/pending bookkeeping, and a full-v refine of each lane's pending
+pose every refine_stride steps (monte_carlo.cpp:99-148).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,16 +31,119 @@ from gnina_tpu_torch.ops import mc
 
 
 class LaneMeta(NamedTuple):
-    """Per-lane static metadata for the flattened (ligand x chain) axis.
-    (The JAX package also carries torsion counts and rigid-DOF flags here
-    for its host-side mutation; K3 reads both from the pack's dofmask.)"""
+    """Per-lane static metadata for the flattened (ligand x chain) axis."""
 
     heavy_mask: torch.Tensor  # (L, NH) bool: real heavy row of the pack
+    ntors: torch.Tensor       # (L,) int64 real torsion count
+    has_rigid: torch.Tensor   # (L,) bool
 
 
 def lane_meta(pack: fd.DockPack) -> LaneMeta:
     real = torch.as_tensor(pack.heavy_idx >= 0, device=pack.lane_lig.device)
-    return LaneMeta(heavy_mask=real[pack.lane_lig.long()])
+    dofm = pack.dofmask[pack.lane_lig.long()]
+    return LaneMeta(heavy_mask=real[pack.lane_lig.long()],
+                    ntors=dofm[:, 6:].sum(1).long(),
+                    has_rigid=dofm[:, 0] > 0)
+
+
+def fused_mc_chunk(carry: mc.MCCarry, generator: Optional[torch.Generator],
+                   num_steps: int, fused, pack: fd.DockPack, scal_hunt,
+                   scal_full, meta: LaneMeta, params: mc.MCParams, tp: int,
+                   draws: Optional[Sequence[Tuple[mc.MutationDraws,
+                                                  torch.Tensor]]] = None
+                   ) -> mc.MCCarry:
+    """num_steps host-driven MC steps on the flat lane axis
+    (monte_carlo.cpp:99-148).
+
+    fused(rigid, tors, scal) -> (rigid', tors', stats, coords) is one
+    minimisation of every lane (a FusedBfgs handle: K2, or K4 under
+    async_ls); the hunt-cap and full-v minimisations share it, the v levels
+    ride in scal.  Step i takes its random numbers from draws[i] =
+    (mutation draws, Metropolis uniforms (L,)) when supplied, else from
+    `generator`."""
+    m = fused.m
+    lanes = carry.e.shape[0]
+    dev = carry.e.device
+
+    def minimize(rigid, tors, scal):
+        org, otr, stats, coords = fused(rigid.contiguous(), tors.contiguous(),
+                                        scal)
+        return org, otr, stats[:, 1], coords
+
+    def add(cont, rigid, tors, e, coords, valid):
+        return mc.add_to_container(cont, rigid[:, 0:3], rigid[:, 3:7],
+                                   tors[:, 1:1 + tp], e, coords,
+                                   meta.heavy_mask, params.min_rmsd,
+                                   valid=valid)
+
+    def sel(mask, a, b):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    def step(carry: mc.MCCarry, i: int) -> mc.MCCarry:
+        if draws is not None:
+            md, u = draws[i]
+        else:
+            md = mc.draw_mutation(generator, meta.ntors, meta.has_rigid,
+                                  device=dev)
+            u = torch.rand(lanes, generator=generator, dtype=torch.float32,
+                           device=generator.device).to(dev)
+        gr = mc.gyration_radius(carry.coords, carry.rigid[:, 0:3],
+                                meta.heavy_mask)
+        cand = mc.mutate_conf(fd.packed_to_conf(carry.rigid, carry.tors,
+                                                m - 1), gr,
+                              params.mutation_amplitude, meta.ntors,
+                              meta.has_rigid, draws=md)
+        crig, ctor = fd.conf_to_packed(cand, m)
+        crig, ctor, cand_e, cand_coords = minimize(crig, ctor, scal_hunt)
+
+        accept = mc.metropolis_accept(carry.e, cand_e, params.temperature,
+                                      u=u)
+        accept = accept | (carry.e >= MAX_FL)      # step 0 always accepts
+        rigid = sel(accept, crig, carry.rigid)
+        tors = sel(accept, ctor, carry.tors)
+        e = torch.where(accept, cand_e, carry.e)
+        coords = sel(accept, cand_coords, carry.coords)
+
+        # "promising" (monte_carlo.cpp:120-135): improved best, or the
+        # container not yet full; saved unrefined right away, refined at
+        # the next stride boundary
+        has_empty = torch.any(carry.cont.energy >= MAX_FL, dim=-1)
+        promising = accept & ((cand_e < carry.best_e) | has_empty)
+        cont = add(carry.cont, rigid, tors, e, coords, promising)
+        best_e = torch.where(promising & (e < carry.best_e), e, carry.best_e)
+        return mc.MCCarry(
+            rigid=rigid, tors=tors, e=e, best_e=best_e, cont=cont,
+            coords=coords,
+            pending_rigid=sel(promising, rigid, carry.pending_rigid),
+            pending_tors=sel(promising, tors, carry.pending_tors),
+            pending_valid=carry.pending_valid | promising,
+            pending_is_current=torch.where(
+                promising, True, carry.pending_is_current & ~accept))
+
+    def refine_phase(carry: mc.MCCarry) -> mc.MCCarry:
+        """Full-v refinement of the pending promising poses (the in-loop
+        quasi_newton at authentic_v, monte_carlo.cpp:128)."""
+        rrig, rtor, re, rcoords = minimize(carry.pending_rigid,
+                                           carry.pending_tors, scal_full)
+        do = carry.pending_valid
+        cont = add(carry.cont, rrig, rtor, re, rcoords, do)
+        best_e = torch.where(do & (re < carry.best_e), re, carry.best_e)
+        move = do & carry.pending_is_current
+        return carry._replace(
+            rigid=sel(move, rrig, carry.rigid),
+            tors=sel(move, rtor, carry.tors),
+            e=torch.where(move, re, carry.e), best_e=best_e, cont=cont,
+            coords=sel(move, rcoords, carry.coords),
+            pending_valid=torch.zeros_like(carry.pending_valid),
+            pending_is_current=torch.zeros_like(carry.pending_is_current))
+
+    stride = params.refine_stride
+    refine = bool(stride) and stride > 0 and num_steps >= stride
+    for i in range(num_steps):
+        carry = step(carry, i)
+        if refine and i % stride == stride - 1:
+            carry = refine_phase(carry)
+    return carry
 
 
 def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
@@ -46,7 +155,9 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
     """num_steps MC steps per lane in windows of S = fused_mc.mc_steps.
 
     generator draws one Philox seed per window (the kernel's stream is
-    keyed on (seed, lane))."""
+    keyed on (seed, lane)).  The stream of an async window (K3) is
+    completion-indexed with a completed flag per row; that of a lockstep
+    window (K5) is step-indexed and every row is valid."""
     lanes = carry.e.shape[0]
     s_steps = fused_mc.mc_steps
     if num_steps % s_steps:
@@ -66,7 +177,10 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
         (frigid, ftors, fstats, fcoords, srig, stor,
          sstat) = fused_mc.run_mc(carry.rigid, carry.tors, scal_hunt, seed,
                                   carry.e)
-        validp = sstat[..., 2] > 0.5                          # (L, S)
+        if fused_mc.async_mc:
+            validp = sstat[..., 2] > 0.5                      # (L, S)
+        else:
+            validp = torch.ones_like(sstat[..., 0], dtype=torch.bool)
         # never-completed rows are zeros (quat 0): neutralize before FK
         ident = torch.tensor([0, 0, 0, 1, 0, 0, 0, 0], dtype=torch.float32,
                              device=dev)
@@ -138,6 +252,10 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
             torch.where(rvalid, re_col, big), dim=1).values)
         carry = mc.MCCarry(rigid=rigid.contiguous(), tors=tors.contiguous(),
                            e=e.contiguous(), best_e=best_e, cont=cont,
-                           coords=coords)
+                           coords=coords, pending_rigid=rigid,
+                           pending_tors=tors,
+                           pending_valid=torch.zeros_like(carry.pending_valid),
+                           pending_is_current=torch.zeros_like(
+                               carry.pending_is_current))
     return carry
 

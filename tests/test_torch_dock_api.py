@@ -1,7 +1,8 @@
 """The ported docking route's entry points on the CPU: dock_batch, dock and
 score_only give poses that are the JAX package's exact rescore of their
 confs, sorted and deduplicated, the same for the same seed; jobs outside
-the fused route raise.
+the fused route raise (test_torch_dock_modes.py docks under every search
+setting of the route and under the default settings).
 
 Energies are held to the JAX exact rescore within 1e-3 kcal/mol, plus
 0.005 kcal/mol for each atom pair whose squared distance lies within 2e-3
@@ -219,6 +220,16 @@ def _vdw_sf():
         ("vdw(i=4,_j=8,_s=0,_^=100,_c=8)", 0.01)])
 
 
+# settings that later porting has brought onto the fused route: they
+# dock instead of raising
+_PORTED = {"cnn_rescore": dict(cnn_scoring="rescore"),
+           "cnn_sort_score": dict(sort_order="CNNscore"),
+           "cnn_sort_affinity": dict(sort_order="CNNaffinity"),
+           "lockstep_mc": dict(fused_async_mc=False),
+           "async_ls": dict(fused_async_ls=True),
+           "warm_ls": dict(fused_warm_ls=True)}
+
+
 @pytest.mark.parametrize("case", [
     "fused_search_off", "cnn_rescore", "cnn_sort_score", "cnn_sort_affinity",
     "cnn_in_loop", "canonical_shapes", "non_vina_terms", "flex",
@@ -226,22 +237,30 @@ def _vdw_sf():
 def test_jobs_outside_the_fused_route_raise(system, case):
     """Each job the fused route does not take raises, from dock_batch and
     from score_only, instead of running with made-up CNN fields or
-    another route's settings."""
+    another route's settings.  The cases since ported (the CNN rescore and
+    sort orders, which without a scorer mean no CNN as in the JAX engine;
+    lockstep MC; the async and warm line searches) no longer raise: they
+    dock and score."""
     settings = dict(SETTINGS)
     sf = None
     lig = system["lig"]
     match = "ROADMAP.md"
+    if case in _PORTED:
+        settings.update(num_mc_steps=16, exhaustiveness=1, **_PORTED[case])
+        eng = DockingEngine(DockSettings(**settings), device="cpu")
+        res = eng.dock_batch(system["rec"], [lig], system["center"],
+                             system["size"], seed=0)[0]
+        assert res and all(p.cnnscore == 0.0 for p in res)
+        if case.startswith("cnn_sort"):
+            # stable sort on the stored 0.0 scores: the container's order
+            assert len({p.energy for p in res}) == len(res)
+        else:
+            e = [p.energy for p in res]
+            assert e == sorted(e)
+        assert np.isfinite(eng.score_only(system["rec"], lig).energy)
+        return
     if case == "fused_search_off":
         settings["fused_search"] = "off"
-    elif case == "cnn_rescore":
-        settings["cnn_scoring"] = "rescore"     # DockSettings' default
-        match = "CNN rescore"
-    elif case == "cnn_sort_score":
-        settings["sort_order"] = "CNNscore"
-        match = "CNN rescore"
-    elif case == "cnn_sort_affinity":
-        settings["sort_order"] = "CNNaffinity"
-        match = "CNN rescore"
     elif case == "canonical_shapes":
         settings["canonical_shapes"] = True
         match = "canonical_shapes"
@@ -253,14 +272,9 @@ def test_jobs_outside_the_fused_route_raise(system, case):
         lig = dataclasses.replace(lig, num_lig_atoms=lig.num_atoms - 2)
     elif case == "covalent":
         lig = dataclasses.replace(lig, has_rigid_dof=False)
-    elif case == "lockstep_mc":
-        settings["fused_async_mc"] = False
-    elif case == "async_ls":
-        settings["fused_async_ls"] = True
-    elif case == "warm_ls":
-        settings["fused_warm_ls"] = True
     elif case == "done_frac":
         settings["fused_done_frac"] = 0.9
+        match = "Queue 2"
     eng = DockingEngine(DockSettings(**settings), sf=sf, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         eng.dock_batch(system["rec"], [lig], system["center"],

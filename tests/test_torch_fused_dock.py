@@ -1,6 +1,7 @@
-"""The plain versions of the three fused kernels (K1 eval_fg, K2
-bfgs_minimize, K3 async_mc_window) against the JAX package's plain
-references: ops/energy.make_energy_fn and ops/bfgs.bfgs.
+"""The plain versions of the fused kernels (K1 eval_fg, K2 bfgs_minimize
+and its async_ls mode K4, K3 async_mc_window and its warm_ls mode K6, K5
+lockstep_mc_window, and K7's gradient layout) against the JAX package's
+plain references: ops/energy.make_energy_fn and ops/bfgs.bfgs.
 
 The JAX side runs through its plain references, as its own fast tier does,
 not through Pallas interpret mode.  Inputs come from a numpy seed and are
@@ -418,6 +419,293 @@ def test_async_mc_plain_generator_is_deterministic(system):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert not torch.equal(a[4], c[4])
+
+
+# ---------------------------------------------------------------- K4 ----
+
+@pytest.mark.parametrize("kind,seed,iters", [("perturbed", 20, 3),
+                                             ("perturbed", 21, 8),
+                                             ("random", 22, 5)])
+def test_async_ls_plain_is_the_lockstep_search(system, kind, seed, iters):
+    """K4's plain version ends in K2's plain state, bit for bit (each lane
+    walks the same trial points; the JAX package asserts the same of its
+    two modes), and its counters follow pallas_dock.py:888-889: row 2 the
+    lane's active ticks, one per Armijo trial, row 3 its accepts."""
+    confs = (random_confs if kind == "random" else perturbed_confs)(
+        system, seed)
+    rigid, tors = packed(confs)
+    args = (system["terms"], rigid, tors, scal(system), system["pack"], iters)
+    r2, t2, s2, c2 = fd.bfgs_minimize(*args)
+    r4, t4, s4, c4 = fd.bfgs_minimize(*args, async_ls=True)
+    assert torch.equal(r4, r2) and torch.equal(t4, t2)
+    assert torch.equal(s4[:, :2], s2[:, :2]) and torch.equal(c4, c2)
+    assert torch.equal(s4[:, 2], s2[:, 2])       # ticks == trial evals
+    assert torch.equal(s4[:, 3], s2[:, 4])       # accepts
+    assert torch.equal(s4[:, 4], s2[:, 4])
+    assert (s4[:, 2] <= iters * fd.NUM_TRIALS + 1).all()
+    assert (s4[:, 3] <= iters).all()
+
+
+def test_async_ls_plain_one_iteration_matches_jax(system):
+    """K4's plain version against ops/bfgs.bfgs at one iteration, within
+    the K2 bounds (rtol 5e-4 / atol 5e-3, 2e-3 A)."""
+    confs = perturbed_confs(system, 23)
+    rigid, tors = packed(confs)
+    r, _, stats, _ = fd.bfgs_minimize(system["terms"], rigid, tors,
+                                      scal(system), system["pack"], 1,
+                                      async_ls=True)
+    res = _jax_bfgs(system, confs, 1)
+    np.testing.assert_allclose(stats[:, 0].numpy(), np.asarray(res.f0),
+                               rtol=5e-4, atol=5e-3)
+    np.testing.assert_allclose(r[:, :3].numpy(),
+                               np.asarray(res.x.position), atol=2e-3)
+
+
+def test_async_ls_plain_no_descent_is_done_at_once(system):
+    """A lane with no descent direction (zero DOF mask) spends no tick."""
+    rigid, tors = packed(perturbed_confs(system, 24))
+    pack = system["pack"]._replace(
+        dofmask=torch.zeros_like(system["pack"].dofmask))
+    r, t, stats, _ = fd.bfgs_minimize(system["terms"], rigid, tors,
+                                      scal(system), pack, 4, async_ls=True)
+    assert torch.equal(r, rigid) and torch.equal(t, tors)
+    assert (stats[:, 2:5] == 0).all()
+
+
+# ---------------------------------------------------------------- K5 ----
+
+def _lockstep(system, confs, seed, maxiters=1, async_ls=False, steps=S_STEPS):
+    rigid, tors = packed(confs)
+    rng = np.random.default_rng(seed)
+    uni = torch.as_tensor(rng.random((steps, fd.N_DRAWS, LANES),
+                                     dtype=np.float32))
+    ecur = torch.full((LANES,), 3.0e38)
+    out = fd.lockstep_mc_window_plain(
+        system["terms"], rigid, tors, scal(system), system["pack"], ecur,
+        steps, maxiters, TRIALS, async_ls=async_ls, uniforms=uni, trace=True)
+    return rigid, tors, ecur, uni, out
+
+
+def test_lockstep_mc_plain_steps_replay_with_jax(system):
+    """Every step's candidate is JAX's bfgs (maxiters 1) from the mutated
+    start the plain window reports, within the K2 bounds (rtol 5e-4 / atol
+    5e-3 on the Metropolis energy, 2e-3 A on position); every Metropolis
+    decision is the one the step's supplied uniform gives; the chain state
+    returned is the last accepted row."""
+    confs = perturbed_confs(system, 30)
+    _, _, ecur, uni, out = _lockstep(system, confs, 37)
+    crig, ctors, stats, coords, srig, stor, sstat, tr = out
+    assert sstat.shape == (LANES, S_STEPS, 3)
+    jf = jax_fns(system)
+    for j in range(S_STEPS):
+        st = tr["start_rigid"][:, j]
+        res = jf["bfgs"][1](JConf(
+            jnp.asarray(st[:, 0:3].numpy()), jnp.asarray(st[:, 3:7].numpy()),
+            jnp.asarray(tr["start_tors"][:, j, 1:].numpy())))
+        em_ref = np.asarray(jf["metro"](res.x))
+        moved = (srig[:, j] != st).any(1).numpy()
+        assert moved.mean() > 0.5
+        np.testing.assert_allclose(sstat[moved, j, 0].numpy(), em_ref[moved],
+                                   rtol=5e-4, atol=5e-3)
+        np.testing.assert_allclose(srig[moved, j, 0:3].numpy(),
+                                   np.asarray(res.x.position)[moved],
+                                   atol=2e-3)
+    for l in range(LANES):
+        e_cur = float(ecur[l])
+        last = None
+        for j in range(S_STEPS):
+            e_new = float(sstat[l, j, 0])
+            want = (e_new < e_cur) or (float(uni[j, 12, l]) < np.exp(
+                np.float32((e_cur - e_new) / 1.2)))
+            assert bool(sstat[l, j, 1] > 0) == want, (l, j)
+            if want:
+                e_cur, last = e_new, j
+        assert torch.equal(crig[l], srig[l, last])
+        assert torch.equal(ctors[l], stor[l, last])
+        assert float(stats[l, 0]) == e_cur
+    assert torch.equal(stats[:, 2], sstat[..., 2].sum(1))
+    # row 4 counts accepted line-search steps: with maxiters 1, the rows
+    # that left their start; row 3 counts the iterations entered
+    n_moved = (srig != tr["start_rigid"]).any(2).sum(1).float()
+    assert torch.equal(stats[:, 4], n_moved)
+    assert (stats[:, 4] <= stats[:, 3]).all()
+
+
+@pytest.mark.parametrize("async_ls", [False, True])
+def test_lockstep_mc_plain_window_is_its_step_replay(system, async_ls):
+    """replay_lockstep_window_plain gives back the plain window exactly
+    (energies, positions, trial counts, Metropolis decisions, returned
+    coordinates): it is the
+    reference the CUDA window is held to on a card.  With async_ls the
+    window is the same window (K4 inside K5)."""
+    confs = perturbed_confs(system, 32)
+    rigid, tors, ecur, uni, out = _lockstep(system, confs, 33, maxiters=3,
+                                            async_ls=async_ls)
+    _, _, stats, coords, srig, stor, sstat, _ = out
+    e, pos, trials, acc, c_rep = fd.replay_lockstep_window_plain(
+        system["terms"], rigid, tors, scal(system), system["pack"], ecur,
+        (srig, stor, sstat), uni, 3, TRIALS, async_ls=async_ls)
+    assert torch.equal(e, sstat[..., 0])
+    assert torch.equal(pos, srig[..., :3])
+    assert torch.equal(trials, sstat[..., 2])
+    assert torch.equal(acc, sstat[..., 1] > 0.5)
+    assert torch.equal(c_rep, coords)
+    if async_ls:
+        base = _lockstep(system, confs, 33, maxiters=3)[4]
+        for i, (x, y) in enumerate(zip(out[:7], base[:7])):
+            if i == 2:      # stats row 3 counts accepts, not iterations
+                x, y = x[:, :3], y[:, :3]
+            if i == 3:      # coordinates: the last tick's trial point
+                continue
+            assert torch.equal(x, y)
+
+
+def test_lockstep_mc_plain_returns_its_last_iterate_coords(system):
+    """The coordinates are the FK of the last step's last BFGS iterate
+    (what the JAX kernel leaves in its coordinate scratch), which is the
+    final chain state only on lanes whose last step was accepted."""
+    confs = random_confs(system, 34)
+    _, _, _, _, out = _lockstep(system, confs, 35, maxiters=2, steps=6)
+    crig, ctors, _, coords, srig, stor, sstat, _ = out
+    last = fd.fk_packed(srig[:, -1], stor[:, -1], system["pack"])
+    head = fd.fk_packed(crig, ctors, system["pack"])
+    np.testing.assert_allclose(coords.numpy(), last.numpy(), atol=1e-6)
+    rejected = sstat[:, -1, 1] < 0.5
+    assert rejected.any()
+    assert not torch.allclose(coords[rejected], head[rejected], atol=1e-3)
+
+
+def test_lockstep_mc_plain_async_ls_returns_its_last_trial_coords(system):
+    """Under async_ls the coordinates are those of the last step's last
+    tick (the JAX async loop's last FK is its trial point, accepted or
+    not).  With maxiters 1 a lane's last tick is its first accept, whose
+    trial point is the stream row, or its last rejected trial, the start
+    moved by -g at the smallest step (atol 1e-5 A)."""
+    confs = random_confs(system, 34)
+    _, _, _, _, out = _lockstep(system, confs, 35, maxiters=1, async_ls=True,
+                                steps=3)
+    _, _, stats, coords, srig, stor, sstat, tr = out
+    pack = system["pack"]
+    st_r, st_t = tr["start_rigid"][:, -1], tr["start_tors"][:, -1]
+    _, _, g, _ = fd._eval(system["terms"], st_r, st_t, scal(system), pack,
+                          True)
+    p = -g * pack.dofmask[pack.lane_lig.long()]
+    alpha = torch.full((LANES,), 2.0 ** -(TRIALS - 1))
+    deep = fd.fk_packed(*fd._increment(st_r, st_t, p, alpha), pack)
+    row = fd.fk_packed(srig[:, -1], stor[:, -1], pack)
+    stuck = (sstat[:, -1, 2] == TRIALS) & (srig[:, -1] == st_r).all(1)
+    took = (srig[:, -1] != st_r).any(1)
+    assert stuck.any() and took.any()
+    np.testing.assert_allclose(coords[took].numpy(), row[took].numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(coords[stuck].numpy(), deep[stuck].numpy(),
+                               atol=1e-5)
+    assert not torch.allclose(coords[stuck], row[stuck], atol=1e-4)
+    # accepted line-search steps are counted in stats row 4
+    assert torch.equal(stats[:, 4], stats[:, 3])
+
+
+def test_lockstep_mc_plain_generator_is_deterministic(system):
+    rigid, tors = packed(random_confs(system, 36))
+    ecur = torch.full((LANES,), 3.0e38)
+
+    def run(seed):
+        return fd.lockstep_mc_window(system["terms"], rigid, tors,
+                                     scal(system), system["pack"], ecur, 2,
+                                     2, seed=seed)
+
+    a, b, c = run(1), run(1), run(2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[4], c[4])
+
+
+# ---------------------------------------------------------------- K6 ----
+
+def test_warm_ls_off_is_the_cold_window(system):
+    """With the flag off the window is bit-identical to the default call
+    (and to the replay, as before)."""
+    confs = perturbed_confs(system, 40)
+    rigid, tors, ecur, uni, out = _mc(system, confs, 41, maxiters=3)
+    off = fd.async_mc_window_plain(system["terms"], rigid, tors,
+                                   scal(system), system["pack"], ecur,
+                                   S_STEPS, BUDGET, 3, TRIALS, uniforms=uni,
+                                   warm_ls=False)
+    for x, y in zip(out[:7], off):
+        assert torch.equal(x, y)
+    ex = out[7]["exponent"]
+    # cold schedule: the exponent is the trial count, 0 after every accept
+    assert np.nanmax(ex.numpy()) <= TRIALS - 1
+
+
+def test_warm_ls_exponent_schedule(system):
+    """With the flag on, every BFGS tick's exponent is max(wa - 1, 0) +
+    trial, where wa is the lane's last accepted exponent, reset to 0 at
+    each new candidate (pallas_dock.py:1150-1152, :1231-1233): re-derived
+    here from the traced accepts alone.  Some lane starts an iteration
+    above exponent 0, which the cold schedule never does."""
+    confs = perturbed_confs(system, 42)
+    rigid, tors = packed(confs)
+    maxit = 4
+    budget = 1 + maxit * TRIALS
+    rng = np.random.default_rng(43)
+    uni = torch.as_tensor(rng.random((S_STEPS * budget, fd.N_DRAWS, LANES),
+                                     dtype=np.float32))
+    ecur = torch.full((LANES,), 3.0e38)
+    out = fd.async_mc_window_plain(system["terms"], rigid, tors, scal(system),
+                                   system["pack"], ecur, S_STEPS, budget,
+                                   maxit, TRIALS, uniforms=uni, trace=True,
+                                   warm_ls=True)
+    ex, acc = out[7]["exponent"].numpy(), out[7]["accepted"].numpy()
+    warm_starts = 0
+    for l in range(LANES):
+        wa = tl = 0.0
+        for k in range(ex.shape[0]):
+            if np.isnan(ex[k, l]):       # a start tick or a finished lane
+                wa = tl = 0.0
+                continue
+            want = max(wa - 1.0, 0.0) + tl
+            assert ex[k, l] == want, (l, k)
+            if acc[k, l]:
+                wa, tl = want, 0.0
+                if k + 1 < ex.shape[0] and ex[k + 1, l] > 0:
+                    warm_starts += 1
+            else:
+                tl += 1.0
+    assert warm_starts > 0
+    assert (out[6][..., 2] == 1).all()
+    # and the replay under the same flag gives the window back
+    e, pos, a, ticks = fd.replay_mc_window_plain(
+        system["terms"], rigid, tors, scal(system), system["pack"], ecur,
+        out[4:7], uni, maxiters=maxit, num_trials=TRIALS, warm_ls=True)
+    assert torch.equal(e, out[6][..., 0]) and torch.equal(
+        ticks, out[2][:, 2].long())
+
+
+# ---------------------------------------------------------------- K7 ----
+
+def test_debug_grad_layout_matches_jax_gradient(system):
+    """K7: the DOF gradient K1 returns, in the debug_grad mode's row layout
+    (DOF row r at coords[l, r % N, r // N], pallas_dock.py:969-973),
+    against jax.grad of the JAX exact energy within the K1 gradient bound
+    (rtol 1e-3 / atol 1e-2); rows past D are zero; the energy rides in
+    stats row 0."""
+    confs = perturbed_confs(system, 50)
+    rigid, tors = packed(confs)
+    r, t, stats, gc = fd.debug_grad(system["terms"], rigid, tors,
+                                    scal(system), system["pack"])
+    n = system["pack"].dims[0]
+    d = 6 + M_PAD - 1
+    assert gc.shape == (LANES, n, 3)
+    ej, gj = jax_fns(system)["deriv"](jconfs(confs))
+    gj = np.where(np.asarray(dof_mask(system)), np.asarray(gj), 0.0)
+    rows = gc.permute(0, 2, 1).reshape(LANES, 3 * n).numpy()   # gd rows
+    np.testing.assert_allclose(rows[:, :d], gj, rtol=1e-3, atol=1e-2)
+    assert (rows[:, d:] == 0).all()
+    np.testing.assert_allclose(stats[:, 0].numpy(), np.asarray(ej),
+                               rtol=2e-4, atol=2e-3)
+    assert (stats[:, 1:] == 0).all()
+    assert torch.equal(r, rigid) and torch.equal(t, tors)
 
 
 def test_wrappers_use_plain_versions_on_cpu_without_counting(system):

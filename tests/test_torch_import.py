@@ -23,7 +23,11 @@ def _port_sources():
 
 _MODULES = ["gnina_tpu_torch", "gnina_tpu_torch.docking",
             "gnina_tpu_torch.ops.fused_dock", "gnina_tpu_torch.ops.mc_fused",
-            "gnina_tpu_torch.convert", "gnina_tpu_torch._fixtures"]
+            "gnina_tpu_torch.convert", "gnina_tpu_torch._fixtures",
+            "gnina_tpu_torch.ops.voxelize", "gnina_tpu_torch.models.typer",
+            "gnina_tpu_torch.models.runtime",
+            "gnina_tpu_torch.models.registry",
+            "gnina_tpu_torch.models.scorer"]
 
 
 @pytest.mark.parametrize("module", _MODULES)
@@ -53,6 +57,16 @@ def test_no_port_source_imports_jax_package():
     assert not offenders, offenders
 
 
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py imports neither JAX nor the JAX package (it reads the
+    converted CNN models as data files)."""
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    bad = [i for i, line in enumerate(lines, 1)
+           if _IMPORT_JAX_PKG.match(line) or _IMPORT_JAX.match(line)]
+    assert not bad, bad
+
+
 def test_tf32_is_off_after_import():
     import torch
 
@@ -78,7 +92,8 @@ def test_default_device_without_card_raises():
 @pytest.mark.parametrize("builder", [
     "build_pack", "scal_vector", "pad_ligand", "pad_receptor",
     "initial_conf", "empty_container", "randomize_conf", "mc_init",
-    "random_orientation"])
+    "random_orientation", "draw_mutation", "load_model", "SpecModule",
+    "CNNScorer", "cnn_model_from_numpy"])
 def test_building_blocks_default_to_the_card(builder):
     """The public building blocks take device=None as the card too: with no
     card they raise instead of building CPU tensors."""
@@ -86,6 +101,8 @@ def test_building_blocks_default_to_the_card(builder):
     import torch
 
     from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch import convert
+    from gnina_tpu_torch.models import registry, runtime, scorer
     from gnina_tpu_torch.ops import fused_dock as fd
     from gnina_tpu_torch.ops import mc, quat
     from gnina_tpu_torch.scoring.builtin import get_scoring_function
@@ -109,6 +126,14 @@ def test_building_blocks_default_to_the_card(builder):
         "mc_init": lambda: mc.mc_init(2, 4, mc.MCParams(), z, z + 1, 8, gen,
                                       lambda r, t: None),
         "random_orientation": lambda: quat.random_orientation((2,), gen),
+        "draw_mutation": lambda: mc.draw_mutation(
+            gen, torch.tensor([3, 3]), torch.tensor([True, True])),
+        "load_model": lambda: registry.load_model(registry.FAST_MODEL),
+        "SpecModule": lambda: runtime.SpecModule(
+            {"input": "x", "ops": [], "output": ["x"]}, {}),
+        "CNNScorer": lambda: scorer.CNNScorer(["fast"]),
+        "cnn_model_from_numpy": lambda: convert.cnn_model_from_numpy(
+            {"input": "x", "ops": [], "output": ["x"]}, {}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[builder]()

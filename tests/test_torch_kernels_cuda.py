@@ -137,6 +137,114 @@ def test_async_mc_kernel_philox_window(system):
         assert torch.equal(x, y)
 
 
+def test_async_bfgs_kernel_is_the_lockstep_search(system):
+    """K4 (async_ls) vs its plain version within the K2 bounds at 3
+    iterations, and against K2 itself on the same starts: with one block
+    per pose both walk the same trial points, so the final energies agree
+    to 1e-4 and the counters relate as pallas_dock.py:888-889 (row 2: one
+    tick per trial; row 3: accepts)."""
+    r, t = _poses(system, "perturbed", 7)
+    args = (system["terms"], r, t, system["scal"], system["pack"], 3)
+    before = dict(fd.bfgs_minimize.launches_by_mode)
+    k4 = fd.bfgs_minimize(*args, async_ls=True)
+    k2 = fd.bfgs_minimize(*args)
+    torch.cuda.synchronize()
+    assert fd.bfgs_minimize.launches_by_mode[True] == before.get(True, 0) + 1
+    ref = fd.bfgs_minimize_plain(*args, async_ls=True)
+    _close(k4[2][:, :2], ref[2][:, :2], 1e-2, 5e-2)
+    same = (k4[2][:, 2] == k2[2][:, 2])
+    assert same.float().mean() > 0.9
+    _close(k4[2][same, :2], k2[2][same, :2], 0, 1e-4)
+    _close(k4[0][same], k2[0][same], 0, 1e-5)
+    assert torch.equal(k4[2][same, 3], k2[2][same, 4])
+
+
+def test_warm_ls_flag_off_is_the_cold_window(system):
+    """K6: with warm_ls off the window is bit-identical to the default call;
+    with it on, every row is within the 3-iteration bound of the plain step
+    (warm schedule) from the kernel's own chain head on lanes that took the
+    same ticks."""
+    r, t = _poses(system, "perturbed", 8)
+    s_steps, maxit = 4, 2
+    budget = 1 + maxit * fd.NUM_TRIALS
+    rng = np.random.default_rng(9)
+    uni = torch.as_tensor(rng.random((s_steps * budget, fd.N_DRAWS, LANES),
+                                     dtype=np.float32), device=system["dev"])
+    ecur = torch.full((LANES,), 3.0e38, device=system["dev"])
+    args = (system["terms"], r, t, system["scal"], system["pack"], ecur,
+            s_steps, budget, maxit)
+    cold = fd.async_mc_window(*args, uniforms=uni)
+    off = fd.async_mc_window(*args, uniforms=uni, warm_ls=False)
+    warm = fd.async_mc_window(*args, uniforms=uni, warm_ls=True)
+    torch.cuda.synchronize()
+    for x, y in zip(cold, off):
+        assert torch.equal(x, y)
+    assert (warm[6][..., 2] == 1).all()
+    e, pos, acc, ticks = fd.replay_mc_window_plain(
+        system["terms"], r, t, system["scal"], system["pack"], ecur,
+        warm[4:], uni, maxiters=maxit, warm_ls=True)
+    same = ticks == warm[2][:, 2].long()
+    assert same.float().mean() >= 0.9
+    _close(warm[6][same][..., 0], e[same], 1e-2, 5e-2)
+    assert torch.equal(warm[6][same][..., 1] > 0.5, acc[same])
+
+
+@pytest.mark.parametrize("async_ls", [False, True])
+def test_lockstep_mc_kernel_on_supplied_uniforms(system, async_ls):
+    """K5 on supplied uniforms: every stream row within the K2
+    one-iteration bound (rtol 5e-4 / atol 5e-3, 2e-3 A) of the plain step
+    from the kernel's own chain head, on rows whose trial counts agree (at
+    least 95% of them); Metropolis decisions as its own energies and
+    uniforms give; the final state is the last accepted row; the
+    coordinates are those of the plain last step's last evaluation (1e-2
+    A: under async_ls that can be a rejected trial point)."""
+    r, t = _poses(system, "perturbed", 10)
+    s_steps, maxit = 4, 1
+    rng = np.random.default_rng(11)
+    uni = torch.as_tensor(rng.random((s_steps, fd.N_DRAWS, LANES),
+                                     dtype=np.float32), device=system["dev"])
+    ecur = torch.full((LANES,), 3.0e38, device=system["dev"])
+    before = fd.lockstep_mc_window.launches
+    got = fd.lockstep_mc_window(system["terms"], r, t, system["scal"],
+                                system["pack"], ecur, s_steps, maxit,
+                                async_ls=async_ls, uniforms=uni)
+    torch.cuda.synchronize()
+    assert fd.lockstep_mc_window.launches == before + 1
+    e, pos, trials, acc, coords = fd.replay_lockstep_window_plain(
+        system["terms"], r, t, system["scal"], system["pack"], ecur, got[4:],
+        uni, maxit, async_ls=async_ls)
+    same = trials == got[6][..., 2]
+    assert same.float().mean() >= 0.95
+    _close(got[6][..., 0][same], e[same], 5e-4, 5e-3)
+    _close(got[4][..., :3][same], pos[same], 0, 2e-3)
+    assert torch.equal(got[6][..., 1] > 0.5, acc)
+    assert torch.equal(got[6][..., 2].sum(1), got[2][:, 2])
+    _close(got[3][same[:, -1]], coords[same[:, -1]], 0, 1e-2)
+    for l in range(LANES):
+        j = int(torch.nonzero(got[6][l, :, 1] > 0)[-1])
+        assert torch.equal(got[0][l], got[4][l, j])
+        assert got[2][l, 0] == got[6][l, j, 0]
+
+
+def test_lockstep_mc_kernel_philox_window(system):
+    """A K5 window on the kernel's own draws: the same seed gives the same
+    window, another seed another; energies finite; accepts 0/1."""
+    r, t = _poses(system, "random", 12)
+    ecur = torch.full((LANES,), 3.0e38, device=system["dev"])
+    args = (system["terms"], r, t, system["scal"], system["pack"], ecur,
+            8, 4)
+    a = fd.lockstep_mc_window(*args, seed=11)
+    b = fd.lockstep_mc_window(*args, seed=11)
+    c = fd.lockstep_mc_window(*args, seed=12)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[4], c[4])
+    assert torch.isfinite(a[6][..., 0]).all()
+    assert ((a[6][..., 1] == 0) | (a[6][..., 1] == 1)).all()
+    assert (a[6][:, 0, 1] == 1).all()
+
+
 def test_wrappers_check_their_inputs(system):
     r, t = _poses(system, "random", 6)
     with pytest.raises(ValueError, match="shape"):
