@@ -3,20 +3,28 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds csrc/fused_dock.cu from this checkout (nvcc, sm_90a), holds each of
-its kernels and kernel modes (K1 eval_fg, K2 bfgs_minimize and its async_ls
-mode K4, K3 async_mc_window and its warm_ls mode K6, K5 lockstep_mc_window,
-K7's gradient layout over K1) against its plain PyTorch version at the
-main path's shapes, and docks 16 copies of the minout.sdf ligand x
-exhaustiveness 8 (128 chains) through DockingEngine.dock_batch on the card
+Builds csrc/fused_dock.cu and csrc/probes.cu from this checkout (one nvcc
+each, started together, sm_90a), holds each of their kernels and kernel
+modes (K1 eval_fg, K2 bfgs_minimize and its async_ls mode K4, K3
+async_mc_window and its warm_ls mode K6, K5 lockstep_mc_window, K7's
+gradient layout over K1, K8 the done_frac group stop of K2/K4/K5, and the
+rate probes K9 probe_pairs, K10 probe_gather_loop, K11 probe_mxu) against
+its plain PyTorch version at the main path's shapes, and docks 16 copies
+of the minout.sdf ligand x exhaustiveness 8 (128 chains) through
+DockingEngine.dock_batch on the card
 under each search setting that selects one of them: the default in-kernel
 search at 1024 MC steps, the same with fused_async_ls and with
 fused_warm_ls, lockstep windows (fused_async_mc=False, 256 steps) and the
-host-driven step loop (fused_mc_in_kernel=False, 4 ligands, 256 steps).
+host-driven step loop (fused_mc_in_kernel=False, 4 ligands, 256 steps),
+and each of the four again with fused_done_frac=0.9.
 Then it docks under the default settings with the default three-model CNN
 ensemble (at 1024 steps, and once at the settings' own step heuristic),
 holds the grids and ensemble outputs of one pose chunk against the same
-code on the CPU, and times every kernel.  The receptor is synthetic, made
+code on the CPU, drives the command line in process (cli.main: a screen
+of the 16 ligands from files with GNINA_TPU_FUSED_DONE_FRAC=0.9 and the
+default CNN rescore, whose SDF tags must equal the engine's energies, then
+--score_only, --minimize and --randomize_only on one ligand), and times
+every kernel.  The receptor is synthetic, made
 from --seed: heavy atoms at protein density on a jittered lattice around
 the ligand with a cavity carved at its centre, read through
 Receptor.from_file.
@@ -25,8 +33,11 @@ A last phase traces one more dock_batch with torch.profiler and splits
 the card's busy time by kernel.
 
 Phases print one line each; any failed check exits non-zero.  The line
-before the last is the kernel table as JSON, the one before it the card's
-`nvidia-smi` name and power limit, and the last line is
+before the last is the kernel table as JSON (`launches` counts kernel
+launches, `calls` the wrapper calls that made them: a K8 call makes one
+cooperative launch per set of co-resident groups, a probe call two), the
+one before it the card's `nvidia-smi` name and power limit, and the last
+line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -37,11 +48,21 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
 FP32_PEAK = 67e12       # H100 SXM FP32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM HBM3, bytes/s
+BF16_PEAK = 989e12      # H100 SXM dense bf16 in the tensor cores, FLOP/s
+# H100 SXM bf16 outside the tensor cores (packed pairs in the FP32 pipes,
+# twice the FP32 rate; NVIDIA's H100 architecture paper, "Peak BF16 TFLOPS
+# (non-Tensor)"), FLOP/s: the peak for K9's __nv_bfloat16 arithmetic
+BF16_VECTOR_PEAK = 133.8e12
+# operations per pair of the probe's pair energy (probes.pair_energies): 9
+# for the distance, 8 for the two gaussians, 18 for the repulsion and the two
+# ramps with their factors, 11 to weigh, cut and add (each exp or sqrt one)
+OPS_PROBE_PAIR = 46
 # FP32 operations per (heavy ligand atom, receptor atom) pair and
 # evaluation, counted from eval_pose in csrc/fused_dock.cu: the distance
 # test every pair pays, and the vina terms (2 gauss, repulsion,
@@ -216,9 +237,630 @@ def compare_k2(fd, terms, r, t, sc, pk, iters, wm, rtol, atol,
     return err, nflip
 
 
+def phase_k8(S, k2_starts, errs):
+    """K8, the group stop (done_frac < 1), on the card.
+
+    In k_bfgs, lockstep and async_ls, at L=128 and L=800 (seven groups, the
+    last with 96 counted padding lanes), done_frac 0.5 and 0.9: against the
+    plain version at the K2 bounds (1 and 3 iterations: a lane whose two
+    versions made the same numbers of trials and accepted steps, and whose
+    group ran the same number of iterations, is held to them wherever the
+    uncoupled kernel meets them too, which at least 99% of lanes must; a
+    lane with other counts had an Armijo test decided the other way, at
+    most 1% may, and one such lane can move its group's stop, in at most
+    one group a call); then at the main
+    path's depth that every lane of a group reports one stop, that no lane
+    ran past it, that a lane which ends on its own before the stop is bit
+    for bit the uncoupled kernel's, that the same launch twice gives the
+    same bits, and that done_frac = 1.0 is the uncoupled launch.  At L=128
+    half the lanes start from minima and half from jittered poses, so that
+    the lanes end at different iterations and the count decides.  In
+    k_lockstep_mc (S=16, L=128 and L=64) on supplied uniforms against the
+    plain steps."""
+    import torch
+
+    fd, fx, terms, dev = S.fd, S.fx, S.terms, S.dev
+    mins = k2_starts["finish"]
+    jit = k2_starts["refine"]
+    half = S.lanes // 2
+    mixed = (torch.cat([mins[0][:half], jit[0][half:]]).contiguous(),
+             torch.cat([mins[1][:half], jit[1][half:]]).contiguous())
+    shapes = (("refine", S.pack, S.lanes, S.scal_r, True, mixed),
+              ("finish", S.pack_out, S.out_lanes, S.scal_s, False, mins))
+    lines = []
+    for label, pk, nl, sc, wm, (r, t) in shapes:
+        for async_ls in (False, True):
+            tag = "[async_ls,done_frac]" if async_ls else "[done_frac]"
+            base = fd.bfgs_minimize(terms, r, t, sc, pk, S.miniters, wm,
+                                    async_ls=async_ls)
+            one = fd.bfgs_minimize(terms, r, t, sc, pk, S.miniters, wm,
+                                   async_ls=async_ls, done_frac=1.0)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(base, one)),
+                  f"K8 {label}: done_frac=1.0 is not the uncoupled launch")
+            worst1 = worst3 = 0.0
+            stops = {}
+            moved_full = {}
+            votes_met = votes_eq = 0
+            cap_slots = (S.miniters * fd.NUM_TRIALS + 1 if async_ls
+                         else S.miniters)
+            # groups holding a lane whose counts (trials, iterations,
+            # accepted steps) differ between the uncoupled kernel and the
+            # uncoupled plain version at the main path's depth
+            pbase = fd.bfgs_minimize_plain(terms, r, t, sc, pk, S.miniters,
+                                           wm, async_ls=async_ls)
+            stray = (base[2][:, 2:5] != pbase[2][:, 2:5]).any(1)
+            strayed = set((torch.nonzero(stray)[:, 0] // fd.GROUP).tolist())
+            n_groups = -(-nl // fd.GROUP)
+
+            def pair(iters, frac):
+                """Kernel and plain stats at (iters, frac), and the lanes
+                within (rtol, atol) of each other."""
+                rtol, atol = (5e-4, 5e-3) if iters == 1 else (1e-2, 5e-2)
+                kw = dict(async_ls=async_ls, done_frac=frac)
+                gs = fd.bfgs_minimize(terms, r, t, sc, pk, iters, wm,
+                                      **kw)[2]
+                torch.cuda.synchronize()
+                rs = fd.bfgs_minimize_plain(terms, r, t, sc, pk, iters, wm,
+                                            **kw)[2]
+                near = ((gs[:, :2].double() - rs[:, :2].double()).abs()
+                        <= atol + rtol * rs[:, :2].double().abs()).all(1)
+                return gs, rs, near
+
+            for iters in (1, 3):
+                _, _, near_free = pair(iters, 1.0)
+                check(float(near_free.float().mean()) >= 0.99,
+                      f"K8 {label}: the uncoupled kernel leaves the K2 "
+                      f"bound on {int((~near_free).sum())} lanes")
+                for frac in (0.5, 0.9):
+                    gs, rs, near = pair(iters, frac)
+                    moved = gs[:, 5] != rs[:, 5]
+                    n_moved = len(set((torch.nonzero(moved)[:, 0]
+                                       // fd.GROUP).tolist()))
+                    check(n_moved <= 1, f"K8 {label} {frac}: the stop "
+                          f"differs from plain in {n_moved} groups")
+                    same = ((gs[:, 2] == rs[:, 2]) & (gs[:, 4] == rs[:, 4])
+                            & ~moved)
+                    nflip = int((~same & ~moved).sum())
+                    check(nflip <= 0.01 * nl,
+                          f"K8 {label} {frac}: Armijo flips on {nflip} lanes")
+                    held = same & near_free
+                    err = max_err(gs[held, :2], rs[held, :2])
+                    check(bool(near[held].all()),
+                          f"K8 {label} {frac}: energies at {iters} "
+                          f"iterations off plain by {err}")
+                    if iters == 1:
+                        worst1 = max(worst1, err)
+                    else:
+                        worst3 = max(worst3, err)
+            votes = {}
+            for frac in (0.5, 0.9):
+                kv, pv = [], []
+                a = fd.bfgs_minimize(terms, r, t, sc, pk, S.miniters, wm,
+                                     async_ls=async_ls, done_frac=frac,
+                                     votes=kv)
+                b = fd.bfgs_minimize(terms, r, t, sc, pk, S.miniters, wm,
+                                     async_ls=async_ls, done_frac=frac)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"K8 {label} {frac}: two launches differ")
+                gi = a[2][:, 5]
+                # the stops at the main path's depth against the plain
+                # version's.  Over this many iterations float32 differences
+                # decide some lane's Armijo or convergence test the other
+                # way, and one such lane can move its group's stop; up to
+                # the stop a coupled lane is the uncoupled one, so a group
+                # may differ only if it holds a lane that already takes
+                # another path in the UNCOUPLED kernel and plain version
+                pi = fd.bfgs_minimize_plain(
+                    terms, r, t, sc, pk, S.miniters, wm, async_ls=async_ls,
+                    done_frac=frac, votes=pv)[2][:, 5]
+                off = set((torch.nonzero(gi != pi)[:, 0]
+                           // fd.GROUP).tolist())
+                check(off <= strayed, f"K8 {label} {frac}: at {S.miniters} "
+                      f"iterations the stop differs from plain in groups "
+                      f"{sorted(off)} ({sorted(set(gi.tolist()))} vs "
+                      f"{sorted(set(pi.tolist()))}); lanes of the uncoupled "
+                      f"search stray only in groups {sorted(strayed)}")
+                moved_full[frac] = len(off)
+                # the stop against the kernel's own barrier words, which no
+                # float32 difference touches: a group met (every block
+                # arrived) at exactly the iterations it ran, its count with
+                # the padding lanes stayed below the target at each but the
+                # last, and reached it there unless the cap ended the loop
+                v = votes[frac] = kv[0]
+                check(v.shape == pv[0].shape == (n_groups, cap_slots),
+                      f"K8 {label} {frac}: votes of shape {tuple(v.shape)}")
+                heads = torch.arange(n_groups, device=dev) * fd.GROUP
+                stop = gi[heads].long()[:, None]
+                col = torch.arange(cap_slots, device=dev)[None]
+                ran = col < stop
+                check(torch.equal(v >= 0, ran), f"K8 {label} {frac}: a group "
+                      f"met at an iteration it did not run, or missed one")
+                pad = torch.zeros(n_groups, 1, dtype=torch.int32, device=dev)
+                pad[-1] = n_groups * fd.GROUP - nl
+                reached = ran & (v + pad >= int(frac * fd.GROUP))
+                at_stop = col == stop - 1
+                check(not bool((reached & ~at_stop).any()),
+                      f"K8 {label} {frac}: a group ran on past its target")
+                check(bool(((reached & at_stop).any(1)
+                            | (stop[:, 0] == cap_slots)).all()),
+                      f"K8 {label} {frac}: a group stopped short of its "
+                      f"target")
+                both = (v >= 0) & (pv[0] >= 0)
+                votes_met += int(both.sum())
+                votes_eq += int((both & (v == pv[0])).sum())
+                grp = torch.arange(nl, device=dev) // fd.GROUP
+                first = gi[(grp * fd.GROUP).clamp(max=nl - 1)]
+                check(torch.equal(gi, first),
+                      f"K8 {label} {frac}: lanes of one group stopped apart")
+                cap = (S.miniters * fd.NUM_TRIALS + 1 if async_ls
+                       else S.miniters)
+                check(bool(((gi >= 1) & (gi <= cap)).all()),
+                      f"K8 {label} {frac}: group iterations out of range")
+                # a lane's own count: iterations entered, or active ticks
+                own = a[2][:, 2] if async_ls else a[2][:, 3]
+                check(bool((own <= gi).all()),
+                      f"K8 {label} {frac}: a lane ran past its group's stop")
+                # a lane the uncoupled kernel ends before the stop is
+                # untouched by it; a cut lane never ends below the
+                # uncoupled minimum (descent, +1e-3)
+                own_free = base[2][:, 2] if async_ls else base[2][:, 3]
+                free = own_free < gi
+                check(torch.equal(a[0][free], base[0][free])
+                      and torch.equal(a[1][free], base[1][free])
+                      and torch.equal(a[2][free, :2], base[2][free, :2]),
+                      f"K8 {label} {frac}: a lane that ended before the "
+                      f"stop differs from the uncoupled kernel")
+                check(bool((a[2][:, 0] >= base[2][:, 0] - 1e-3).all()),
+                      f"K8 {label} {frac}: a cut lane ended below the "
+                      f"uncoupled search")
+                check(bool(torch.isfinite(a[0]).all()),
+                      f"K8 {label} {frac}: non-finite poses")
+                stops[frac] = sorted(set(gi.tolist()))
+            check(stops[0.5][0] <= stops[0.9][0],
+                  f"K8 {label}: a lower done_frac stopped later")
+            # up to the earlier stop the two runs are the same search
+            both = (votes[0.5] >= 0) & (votes[0.9] >= 0)
+            check(torch.equal(votes[0.5][both], votes[0.9][both]),
+                  f"K8 {label}: the done counts at 0.5 and 0.9 differ "
+                  f"before either stop")
+            errs[f"bfgs_minimize{tag}/{label}"] = worst1
+            lines.append(
+                f"[3c] K8 bfgs_minimize{tag}/{label} (L={nl}) vs plain at "
+                f"done_frac 0.5 and 0.9: max |de| {worst1:.2e} at 1 "
+                f"iteration (rtol 5e-4, atol 5e-3), {worst3:.2e} at 3 (rtol "
+                f"1e-2, atol 5e-2); at {S.miniters} iterations the groups "
+                f"stopped after {stops[0.5]} (0.5) and {stops[0.9]} (0.9) "
+                f"{'ticks' if async_ls else 'iterations'}, the plain "
+                f"version's stops in all but {moved_full[0.5]} (0.5) and "
+                f"{moved_full[0.9]} (0.9) of {n_groups} groups, each of "
+                f"them among the {len(strayed)} groups where a lane of the "
+                f"uncoupled search ({int(stray.sum())} of {nl}) takes "
+                f"another path in kernel and plain version; every stop is "
+                f"where the kernel's own barrier words reach the target "
+                f"(done counts equal to the plain version's at {votes_eq} of "
+                f"{votes_met} meetings); one stop per group, ended lanes "
+                f"bit-equal to the uncoupled kernel, two launches "
+                f"bit-equal, 1.0 bit-equal to uncoupled")
+    for ln in lines:
+        print(ln, flush=True)
+
+    # The barrier's own cost: 128 copies of one pose do the same work in
+    # every block, so no block waits for a slower one, and with done_frac
+    # 0.99 the group stops where each pose stops anyway.  What the coupled
+    # launch takes beyond the uncoupled one, over the iterations it ran, is
+    # the meeting itself (with the launch's extra cost: the cooperative
+    # launch and the zeroed words).  Timed in turns: free, coupled,
+    # coupled, free.
+    r1 = jit[0][:1].expand(S.lanes, -1).contiguous()
+    t1 = jit[1][:1].expand(S.lanes, -1).contiguous()
+    parts = []
+    for async_ls in (False, True):
+        run = lambda frac: fd.bfgs_minimize(
+            terms, r1, t1, S.scal_r, S.pack, S.miniters, True,
+            async_ls=async_ls, done_frac=frac)
+        out, ref = run(0.99), run(1.0)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, x[:1].expand_as(x)) for x in out[:2]),
+              "K8: identical poses ended apart")
+        check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+              "K8: identical poses stopped off the uncoupled search")
+        its = float(out[2][0, 5])
+        ms = [timed(lambda: run(f), 20) for f in (1.0, 0.99, 0.99, 1.0)]
+        extra = (ms[1] + ms[2] - ms[0] - ms[3]) / 2
+        parts.append(f"{'async_ls' if async_ls else 'lockstep'}: uncoupled "
+                     f"{ms[0]:.3f} and {ms[3]:.3f} ms, coupled {ms[1]:.3f} "
+                     f"and {ms[2]:.3f} ms over {its:.0f} "
+                     f"{'ticks' if async_ls else 'iterations'}, "
+                     f"{1e3 * extra / max(its, 1.0):.2f} us each")
+    print("[3c] K8's meeting alone (128 copies of one pose, done_frac 0.99, "
+          "the launch's extra cost included): " + "; ".join(parts),
+          flush=True)
+
+    # K5 coupled: S=16 steps on supplied uniforms, rows against the plain
+    # steps from the kernel's own chain head.  At the lockstep dock's 128
+    # lanes (a full group) one iteration a step at 0.9 and three at 0.5; at
+    # the screen's 64 lanes (8 ligands x 8 chains, 64 counted padding lanes)
+    # three iterations at 0.5, where the padding alone meets the target of 64
+    # and every step's BFGS must stop after one iteration, and at 0.55 (6
+    # real lanes needed).  Held: the group's iteration count (stats row 5)
+    # equals the sum of the plain steps' counts (a step with a flipped
+    # Armijo test may move it by at most maxiters), trial counts equal on
+    # 98% of rows, Metropolis decisions recomputed, two launches bit-equal.
+    # Energies: one iteration a step at K5's two-tier rule; three at 99% of
+    # rows within the K2 three-iteration bound.  No bound on every row at
+    # three iterations: a candidate mutated into a clash amplifies float32
+    # differences from iteration to iteration, and the UNCOUPLED kernel's
+    # rows, compared the same way on the same inputs, stray as far (printed
+    # beside).
+    pack64 = S.pack.with_lanes(torch.arange(
+        LIGANDS // 2, device=dev, dtype=torch.int32).repeat_interleave(
+            EXHAUSTIVENESS))
+    k5_err, parts = 0.0, []
+    for pk, maxit, frac, control in ((S.pack, 1, 0.9, False),
+                                     (S.pack, 3, 0.5, True),
+                                     (pack64, 3, 0.5, False),
+                                     (pack64, 3, 0.55, False)):
+        nl = pk.lanes
+        ecur = torch.full((nl,), 3.0e38, device=dev)
+        r, t = fx.packed_poses(S.rng, nl, S.lo, S.hi, S.lig, S.m, dev,
+                               "perturbed")
+        uni = torch.as_tensor(S.rng.random((16, fd.N_DRAWS, nl),
+                                           dtype=np.float32), device=dev)
+        inner = (5e-4, 5e-3) if maxit == 1 else (1e-2, 5e-2)
+
+        def rows(kfrac):
+            """The window at kfrac against its plain steps: (outputs, rows
+            beyond the inner bound, largest |de|, flipped rows)."""
+            got = fd.lockstep_mc_window(terms, r, t, S.scal_h, pk, ecur, 16,
+                                        maxit, uniforms=uni, done_frac=kfrac)
+            torch.cuda.synchronize()
+            rep = fd.replay_lockstep_window_plain(
+                terms, r, t, S.scal_h, pk, ecur, got[4:], uni, maxit,
+                done_frac=kfrac)
+            same = rep[2] == got[6][..., 2]
+            ek, er = got[6][..., 0][same].double(), rep[0][same].double()
+            tight = (ek - er).abs() <= inner[1] + inner[0] * er.abs()
+            return got, rep, same, ek, er, int((~tight).sum())
+
+        got, rep, same, ek, er, n_loose = rows(frac)
+        again = fd.lockstep_mc_window(terms, r, t, S.scal_h, pk, ecur, 16,
+                                      maxit, uniforms=uni, done_frac=frac)
+        torch.cuda.synchronize()
+        tag = f"K8 in K5 (L={nl}, maxiters {maxit}, done_frac {frac})"
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{tag}: two launches differ")
+        gi = got[2][:, 5]
+        grp = torch.arange(nl, device=dev) // fd.GROUP
+        check(torch.equal(gi, gi[(grp * fd.GROUP).clamp(max=nl - 1)]),
+              f"{tag}: lanes of one group ran different iteration counts")
+        check(bool(((gi >= 16) & (gi <= 16 * maxit)).all()),
+              f"{tag}: group iterations out of range")
+        nflip = int((~same).sum())
+        check(nflip <= 0.02 * same.numel(),
+              f"{tag}: trial counts differ from plain on {nflip} rows")
+        flipped_steps = int((~same).any(0).sum())
+        gap = float((gi - rep[5].sum(1)).abs().max())
+        check(gap <= maxit * flipped_steps,
+              f"{tag}: the group ran {sorted(set(gi.tolist()))} iterations, "
+              f"the plain steps {sorted(set(rep[5].sum(1).tolist()))}")
+        if pk is pack64 and frac == 0.5:
+            check(bool((gi == 16).all()), f"{tag}: the padding lanes alone "
+                  f"meet the target, yet the group ran {gi[0]} iterations")
+        err = max_err(ek, er)
+        check(n_loose <= 0.01 * ek.numel()
+              and (maxit > 1 or close(ek, er, 1e-2, 5e-2)),
+              f"{tag}: stream energies off the plain steps by {err} "
+              f"({n_loose} rows beyond rtol {inner[0]}, atol {inner[1]})")
+        check(torch.equal(got[6][..., 1] > 0.5, rep[3]),
+              f"{tag}: Metropolis decisions")
+        k5_err = max(k5_err, err)
+        part = (f"L={nl} maxiters {maxit} done_frac {frac}: {gi[0]:.0f} "
+                f"iterations of at most {16 * maxit} as in the plain steps, "
+                f"{n_loose} of {ek.numel()} rows beyond rtol {inner[0]}, "
+                f"atol {inner[1]}, max |de| {err:.2e}, trial counts differ "
+                f"on {nflip} rows")
+        if control:
+            _, _, _, ek1, er1, n_loose1 = rows(1.0)
+            part += (f" (the uncoupled kernel against its plain steps on "
+                     f"the same inputs: {n_loose1} rows beyond, max |de| "
+                     f"{max_err(ek1, er1):.2e})")
+        parts.append(part)
+    errs["lockstep_mc_window[done_frac]"] = k5_err
+    print("[3c] K8 in lockstep_mc_window (S=16, supplied uniforms) vs the "
+          "plain steps; one iteration a step: 99% of rows within rtol 5e-4, "
+          "atol 5e-3 and all within rtol 1e-2, atol 5e-2; three: 99% within "
+          "rtol 1e-2, atol 5e-2; Metropolis decisions recomputed, two "
+          "launches bit-equal, one count per group. " + "; ".join(parts),
+          flush=True)
+
+
+def phase_probes(S, errs):
+    """K9-K11 against their plain versions at the script's default sizes
+    (L=128, N=32, K=1280, 20 repetitions), then timed; returns the table
+    rows.  Tolerances: each checksum is a float32 sum of 1e8 (K9), 8e5
+    (K10) or 8e6 (K11) terms taken in another order than the plain
+    version's, held to 2e-5 of the sum of the terms' magnitudes; bfloat16
+    pair arithmetic rounds at other places in the two versions (hexp and
+    hsqrt against float32 functions rounded once): 2e-2 of it."""
+    import torch
+
+    from gnina_tpu_torch import probes
+
+    dev = S.dev
+    lanes, n, k, reps = 128, 32, 1280, 20
+    x = probes.make_inputs(S.seed, lanes, n, k, dev)
+    a = n * lanes
+    mag_pairs = reps * float(probes.pair_energies(
+        x["lig"], x["ligp"], x["rec"], x["recp"]).abs().sum())
+    mag_gather = reps * float(
+        (x["cells"][x["idx"].long(), :8] * x["w"]).abs().sum())
+    mag_mxu = reps * float(x["g"].float()[x["tgt"][:, 0].long()].abs().sum())
+    pair_args = (x["lig"], x["ligp"], x["rec"], x["recp"], reps)
+    ii = torch.arange(probes.MXU_KDIM, device=dev, dtype=torch.int32)[None]
+    onehot = (ii == x["tgt"]).to(torch.bfloat16)
+
+    def lib_mxu():
+        for _ in range(reps):
+            torch.matmul(onehot, x["g"])
+
+    in_bytes = lambda *names: sum(x[nm].numel() * x[nm].element_size()
+                                  for nm in names) + 4
+    cases = (
+        ("probe_pairs/f32", lambda: probes.probe_pairs(*pair_args),
+         lambda: probes.probe_pairs_plain(*pair_args), 2e-5, mag_pairs,
+         OPS_PROBE_PAIR * a * k * reps / FP32_PEAK,
+         in_bytes("lig", "ligp", "rec", "recp"), None,
+         "scripts/tpu_pallas_probe.py:104"),
+        ("probe_pairs/bf16",
+         lambda: probes.probe_pairs(*pair_args, dtype=torch.bfloat16),
+         lambda: probes.probe_pairs_plain(*pair_args, dtype=torch.bfloat16),
+         2e-2, mag_pairs, OPS_PROBE_PAIR * a * k * reps / BF16_VECTOR_PEAK,
+         in_bytes("lig", "ligp", "rec", "recp"), None,
+         "scripts/tpu_pallas_probe.py:104"),
+        ("probe_gather_loop",
+         lambda: probes.probe_gather_loop(x["idx"], x["cells"], x["w"], reps),
+         lambda: probes.probe_gather_loop_plain(x["idx"], x["cells"], x["w"],
+                                                reps),
+         2e-5, mag_gather, 16 * a * reps / FP32_PEAK,
+         a * (4 + 32 + 32) + 4, None, "scripts/tpu_pallas_probe.py:126"),
+        ("probe_mxu", lambda: probes.probe_mxu(x["tgt"], x["g"], reps),
+         lambda: probes.probe_mxu_plain(x["tgt"], x["g"], reps), 2e-5,
+         mag_mxu, 2.0 * a * probes.MXU_KDIM * 128 * reps / BF16_PEAK,
+         in_bytes("tgt", "g"), lib_mxu, "scripts/tpu_pallas_probe.py:163"),
+    )
+    rows = []
+    for name, kern, plain, tol, mag, ops_s, nbytes, lib, replaces in cases:
+        got = float(kern())
+        torch.cuda.synchronize()
+        ref = float(plain())
+        again = float(kern())
+        err = abs(got - ref)
+        check(np.isfinite(got) and err <= tol * mag,
+              f"{name}: checksum {got} vs plain {ref} (allowed {tol * mag})")
+        check(got == again, f"{name}: two launches differ")
+        errs[name] = err
+        bytes_s = nbytes / HBM_RATE
+        rows.append(dict(
+            name=name, shape=f"L={lanes} N={n} K={k} reps={reps}",
+            ms=timed(kern, 5), plain_ms=timed(plain, 2),
+            bound_ms=max(ops_s, bytes_s) * 1e3,
+            bound_by="operations" if ops_s >= bytes_s else "bytes",
+            library_ms=timed(lib, 5) if lib else None, replaces=replaces,
+            max_abs_err=err, source="gnina_tpu_torch/csrc/probes.cu"))
+        print(f"[4e] {name} vs plain: checksum {got:.6g} vs {ref:.6g}, |d| "
+              f"{err:.3g} (allowed {tol:g} x {mag:.4g} = {tol * mag:.3g}), "
+              f"two launches equal", flush=True)
+    # the probes' own path: the script a user runs, counts set to 0 before
+    for pr in probes.PROBES:
+        pr.reset()
+    probes.run(dev)
+    torch.cuda.synchronize()
+    counts = {pr.name: pr.launches for pr in probes.PROBES}
+    calls = {pr.name: pr.calls for pr in probes.PROBES}
+    check(all(counts[nm] == probes.LAUNCHES_PER_CALL * calls[nm] > 0
+              for nm in counts), f"probe launches {counts} of calls {calls}")
+    for row in rows:
+        row["launches"] = counts[row["name"].split("/")[0]]
+        row["calls"] = calls[row["name"].split("/")[0]]
+    print(f"[4e] python -m gnina_tpu_torch.probes in process: calls {calls}, "
+          f"kernel launches {counts} ({probes.LAUNCHES_PER_CALL} a call: the "
+          f"probe's kernel and the sum of its partial sums)", flush=True)
+    return rows
+
+
+def phase_cli(S, scorer_names):
+    """The command line at full width: a screen of 16 copies of the ligand
+    through cli.main (autobox, exhaustiveness 8, 1024 steps, the default CNN
+    rescore, fused_done_frac 0.9 from the environment), then --score_only,
+    --minimize and --randomize_only on one ligand.  Returns the screen's
+    kernel launches and its walls at done_frac 0.9 and 1.0."""
+    import re
+    import tempfile
+
+    import torch
+
+    from gnina_tpu_torch import cli
+
+    fd, fx = S.fd, S.fx
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    path = lambda name: os.path.join(tmp, name)
+
+    def read(name):
+        with open(path(name)) as f:
+            return f.read()
+
+    with open(path("rec.pdb"), "w") as f:
+        f.write(fx.receptor_pdb_text(fx.ligand_center(S.lig), S.seed))
+    with open(fx.LIGAND_SDF) as f:
+        first = f.read().split("$$$$\n")[0] + "$$$$\n"
+    body = first[first.index("\n"):]
+    names = [f"lig{i:02d}" for i in range(LIGANDS)]
+    with open(path("one.sdf"), "w") as f:
+        f.write(first)
+    with open(path("ligs.sdf"), "w") as f:
+        f.write("".join(n + body for n in names))
+
+    captured = []
+    real_dock = cli.DockingEngine.dock_batch
+
+    def spy(self, *a, **kw):
+        res = real_dock(self, *a, **kw)
+        captured.extend(res)
+        return res
+
+    def screen(frac, tag):
+        os.environ["GNINA_TPU_FUSED_DONE_FRAC"] = str(frac)
+        argv = ["-r", path("rec.pdb"), "-l", path("ligs.sdf"),
+                "--autobox_ligand", path("one.sdf"), "--exhaustiveness",
+                str(EXHAUSTIVENESS), "--num_mc_steps", str(MC_STEPS),
+                "--seed", str(S.seed + 1), "-o", path(f"out_{tag}.sdf"),
+                "--log", path(f"screen_{tag}.log"), "-q"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)                 # no --device: the card
+        torch.cuda.synchronize()
+        return rc, time.perf_counter() - t0
+
+    try:
+        cli.DockingEngine.dock_batch = spy
+        for k in fd.KERNELS:
+            k.reset()
+        rc, cold = screen(0.9, "a")
+        cnt = read_counts(fd)
+        launches, coupled, calls = cnt.launches, cnt.coupled, cnt.calls
+        check(rc == 0, f"the screen returned {rc}")
+        n_b = LIGANDS // 8
+        n_win = MC_STEPS // 128
+        # the finish stages' lanes (8 ligands x saved poses) exceed what one
+        # cooperative launch holds, so they make more launches than calls
+        check(calls["async_mc_window"] == n_b * n_win
+              and calls["bfgs_minimize"] == n_b * (2 * n_win + 5)
+              and calls["eval_fg"] == n_b
+              and launches["bfgs_minimize"] >= calls["bfgs_minimize"],
+              f"screen calls {calls}, launches {launches}")
+        check(coupled["bfgs_minimize"] == launches["bfgs_minimize"],
+              f"the screen ran K2 uncoupled: {coupled}")
+        check(len(captured) == LIGANDS, "the screen docked "
+              f"{len(captured)} ligands")
+        blocks = [b for b in read("out_a.sdf").split("$$$$\n") if b.strip()]
+        log = read("screen_a.log")
+        it = iter(blocks)
+        n_poses = 0
+        for name, res in zip(names, captured):
+            check(bool(res), f"{name}: no poses")
+            check(f"## {name}\n" in log, f"{name} missing from the log")
+            for p in res:
+                b = next(it, "")
+                check(b.splitlines()[0] == name, f"block order at {name}")
+                tag = re.search(r">  <minimizedAffinity>\n(\S+)", b)
+                check(tag is not None and tag.group(1) == f"{p.energy:.5f}",
+                      f"{name}: minimizedAffinity tag vs the engine's "
+                      f"{p.energy:.5f}")
+                check(">  <CNNscore>" in b and ">  <CNNaffinity>" in b,
+                      f"{name}: CNN tags missing")
+                n_poses += 1
+        check(next(it, None) is None, "more SDF blocks than poses")
+        best = [r[0].energy for r in captured]
+        # the same screen at 1.0 and 0.9 in turns, warm: 1.0, 0.9, 0.9, 1.0
+        walls = {0.9: [], 1.0: []}
+        means = {}
+        for i, frac in enumerate((1.0, 0.9, 0.9, 1.0)):
+            del captured[:]
+            rc, w = screen(frac, f"t{i}")
+            check(rc == 0, f"the screen at done_frac {frac} returned {rc}")
+            walls[frac].append(w)
+            means[frac] = float(np.mean([r[0].energy for r in captured]))
+    finally:
+        cli.DockingEngine.dock_batch = real_dock
+        os.environ.pop("GNINA_TPU_FUSED_DONE_FRAC", None)
+    print(f"[5h] cli.main screen: {LIGANDS} ligands in {n_b} batches of 8 x "
+          f"{EXHAUSTIVENESS} chains, {MC_STEPS} steps, default CNN rescore "
+          f"({', '.join(scorer_names)}), GNINA_TPU_FUSED_DONE_FRAC=0.9: rc "
+          f"0, {n_poses} SDF blocks for {LIGANDS} ligands in input order, "
+          f"every minimizedAffinity tag equal to the engine's energy, CNN "
+          f"tags present; first call {cold:.2f} s (loads the ensemble); "
+          f"calls {calls}, launches {launches}, coupled {coupled}; warm "
+          f"walls at done_frac "
+          f"1.0 {walls[1.0][0]:.2f} and {walls[1.0][1]:.2f} s, at 0.9 "
+          f"{walls[0.9][0]:.2f} and {walls[0.9][1]:.2f} s (in turns 1.0, "
+          f"0.9, 0.9, 1.0); mean best energy {means[1.0]:.3f} (1.0) vs "
+          f"{means[0.9]:.3f} (0.9) kcal/mol; best of the first run "
+          f"{min(best):.3f}", flush=True)
+
+    # the other modes on one ligand
+    base = ["-r", path("rec.pdb"), "-l", path("one.sdf"), "-q"]
+    for k in fd.KERNELS:
+        k.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(base + ["--score_only", "--log", path("score.log"), "-o",
+                          path("score.sdf")])
+    t_score = time.perf_counter() - t0
+    check(rc == 0 and fd.eval_fg.launches == 1,
+          f"--score_only: rc {rc}, K1 launches {fd.eval_fg.launches}")
+    slog = read("score.log")
+    aff = re.search(r"Affinity: (-?[\d.]+) \(kcal/mol\)", slog)
+    cs = re.search(r"CNNscore: ([\d.]+)", slog)
+    check(aff is not None and cs is not None
+          and "Term values, before weighting:" in slog
+          and "Intramolecular energy:" in slog, "--score_only log lines")
+    check(0.0 < float(cs.group(1)) < 1.0, "--score_only CNNscore")
+    t0 = time.perf_counter()
+    rc = cli.main(base + ["--minimize", "--cnn_scoring", "none", "--log",
+                          path("min.log"), "-o", path("min.sdf")])
+    t_min = time.perf_counter() - t0
+    mlog = read("min.log")
+    m_aff = re.search(r"Affinity: (-?[\d.]+)  (-?[\d.]+) \(kcal", mlog)
+    m_rmsd = re.search(r"RMSD: ([\d.]+)", mlog)
+    check(rc == 0 and m_aff is not None and m_rmsd is not None,
+          "--minimize log lines")
+    # the same on the CPU: one basin (0.05 kcal/mol, 0.1 A)
+    rc = cli.main(base + ["--minimize", "--cnn_scoring", "none", "--device",
+                          "cpu", "--log", path("min_cpu.log")])
+    c_aff = re.search(r"Affinity: (-?[\d.]+)", read("min_cpu.log"))
+    c_rmsd = re.search(r"RMSD: ([\d.]+)", read("min_cpu.log"))
+    check(rc == 0 and abs(float(m_aff.group(1)) - float(c_aff.group(1)))
+          <= 0.05 and abs(float(m_rmsd.group(1)) - float(c_rmsd.group(1)))
+          <= 0.1, f"--minimize on the card {m_aff.group(1)} vs the CPU "
+          f"{c_aff.group(1)}")
+    check(float(m_aff.group(1)) < float(aff.group(1)),
+          "--minimize did not lower the affinity")
+    rc = cli.main(base + ["--randomize_only", "--cnn_scoring", "none",
+                          "--num_modes", "3", "--log", path("rand.log"), "-o",
+                          path("rand.sdf")])
+    check(rc == 0 and read("rand.log").count("Clash penalty:") == 3
+          and read("rand.sdf").count("$$$$") == 3,
+          "--randomize_only")
+    check(cli.main(base + ["--no_such_flag"]) == 1, "unknown flag accepted")
+    print(f"[5h] cli.main on one ligand: --score_only rc 0 in {t_score:.2f} "
+          f"s (K1 once; Affinity {aff.group(1)}, CNNscore {cs.group(1)}); "
+          f"--minimize rc 0 in {t_min:.2f} s (Affinity {m_aff.group(1)}, "
+          f"RMSD {m_rmsd.group(1)}; on the CPU {c_aff.group(1)}, "
+          f"{c_rmsd.group(1)}: within 0.05 kcal/mol and 0.1 A); "
+          f"--randomize_only rc 0, 3 poses; an unknown flag returns 1",
+          flush=True)
+    return launches, coupled, walls
+
+
+def read_counts(fd):
+    """Every wrapper's counts as dicts by kernel name: kernel launches (in
+    all, by the call's lane count, by mode, with done_frac < 1) and wrapper
+    calls (in all, by lane count).  The two differ under K8 only, where a
+    call makes one cooperative launch per set of co-resident groups."""
+    ks = fd.KERNELS
+    return types.SimpleNamespace(
+        launches={k.name: k.launches for k in ks},
+        calls={k.name: k.calls for k in ks},
+        by_lanes={k.name: dict(k.launches_by_lanes) for k in ks},
+        calls_by_lanes={k.name: dict(k.calls_by_lanes) for k in ks},
+        by_mode={k.name: dict(k.launches_by_mode) for k in ks},
+        coupled={k.name: k.launches_coupled for k in ks})
+
+
 def counted_dock(fd, eng, *args, **kw):
     """One dock_batch with every kernel count set to 0 just before and read
-    just after: (results, wall s, launches, by lanes, by mode)."""
+    just after: (results, wall s, counts as read_counts gives them)."""
     import torch
 
     torch.cuda.synchronize()
@@ -228,9 +870,7 @@ def counted_dock(fd, eng, *args, **kw):
     results = eng.dock_batch(*args, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (results, wall, {k.name: k.launches for k in fd.KERNELS},
-            {k.name: dict(k.launches_by_lanes) for k in fd.KERNELS},
-            {k.name: dict(k.launches_by_mode) for k in fd.KERNELS})
+    return results, wall, read_counts(fd)
 
 
 def bound_ms(ops, nbytes):
@@ -271,11 +911,13 @@ def main():
 
     # ---- 1. device and build ------------------------------------------
     t0 = time.perf_counter()
-    so = _cuda.build(verbose=True)
+    sos = _cuda.build_all(verbose=True)     # one nvcc per source, together
     _cuda.lib()
+    _cuda.probes_lib()
     build_s = time.perf_counter() - t0
-    print(f"[1] device {kind} | {smi} | kernels built in {build_s:.1f} s "
-          f"({os.path.basename(so)})", flush=True)
+    print(f"[1] device {kind} | {smi} | kernels built in {build_s:.1f} s ("
+          + ", ".join(os.path.basename(v) for v in sos.values()) + ")",
+          flush=True)
 
     # ---- the main path's system -----------------------------------------
     rec, lig, center, size = fx.system(seed=args.seed, box=20.0)
@@ -310,6 +952,11 @@ def main():
     # (K2) at slope 1e5
     scal_r = fd.scal_vector(1000.0, 1000.0, 1e3, 1000.0, lo, hi, device=dev)
     scal_s = fd.scal_vector(1000.0, 1000.0, 1e5, 1000.0, lo, hi, device=dev)
+    S = types.SimpleNamespace(
+        fd=fd, fx=fx, terms=terms, dev=dev, rng=rng, seed=args.seed, lig=lig,
+        rec=rec, m=m, lo=lo, hi=hi, pack=pack, pack_out=pack_out, lanes=lanes,
+        out_lanes=out_lanes, miniters=miniters, scal_h=scal_h, scal_r=scal_r,
+        scal_s=scal_s)
 
     # ---- 2. K1 vs its plain version at the rescore's shape ---------------
     e_err = g_err = c_err = 0.0
@@ -415,6 +1062,9 @@ def main():
               f"{int(same.sum())} of {nl} lanes with the same trial count: "
               f"max |de| {d_e:.2e} (1e-4), |dx| {d_x:.2e} (1e-5)",
               flush=True)
+
+    # ---- 3c. K8: the group stop in k_bfgs and k_lockstep_mc --------------
+    phase_k8(S, k2_starts, errs)
 
     # ---- 4. K3 vs its plain version --------------------------------------
     # S=4 steps of one BFGS iteration each on the same supplied uniforms.
@@ -539,7 +1189,7 @@ def main():
         got = fd.lockstep_mc_window(terms, r, t, scal_h, pack, ecur, s_steps,
                                     1, async_ls=async_ls, uniforms=uni)
         torch.cuda.synchronize()
-        e_rep, p_rep, tr_rep, acc_rep, c_rep = \
+        e_rep, p_rep, tr_rep, acc_rep, c_rep, _ = \
             fd.replay_lockstep_window_plain(
                 terms, r, t, scal_h, pack, ecur, got[4:], uni, 1,
                 async_ls=async_ls)
@@ -620,14 +1270,21 @@ def main():
           f"output, L={out_lanes}): max |dg| {errs['debug_grad']:.2e} vs "
           f"plain (rtol 1e-3, atol 1e-2), rows past D zero", flush=True)
 
+    # ---- 4e. K9-K11: the rate probes ---------------------------------------
+    probe_rows = phase_probes(S, errs)
+
     # ---- 5. the main path end to end ---------------------------------------
     settings = DockSettings(cnn_scoring="none", num_mc_steps=MC_STEPS,
                             exhaustiveness=EXHAUSTIVENESS)
     eng = DockingEngine(settings)           # device=None: the card
     check(eng.device.type == "cuda", "default device is not the card")
     eng.dock_batch(rec, ligs, center, size, seed=args.seed)     # warm
-    results, wall, launches, by_lanes, by_mode = counted_dock(
+    results, wall, cnt = counted_dock(
         fd, eng, rec, ligs, center, size, seed=args.seed + 1)
+    cnt_main = cnt
+    launches, by_lanes, by_mode = cnt.launches, cnt.by_lanes, cnt.by_mode
+    check(cnt.calls == launches, f"uncoupled calls {cnt.calls} made "
+          f"{launches} launches")
     check(launches["async_mc_window"] == MC_STEPS // 128,
           f"K3 launches {launches['async_mc_window']}")
     check(launches["bfgs_minimize"] == 2 * (MC_STEPS // 128) + 5,
@@ -697,9 +1354,12 @@ def main():
         `expect` maps kernel name -> launches."""
         st = DockSettings(cnn_scoring="none", num_mc_steps=steps,
                           exhaustiveness=EXHAUSTIVENESS, **kw)
-        res, w, ln, bl, bm = counted_dock(
+        res, w, cnt = counted_dock(
             fd, DockingEngine(st), rec, ligs[:n_ligs], center, size,
             seed=args.seed + 1)
+        ln, bl, bm = cnt.launches, cnt.by_lanes, cnt.by_mode
+        check(cnt.calls == ln, f"{label}: uncoupled calls {cnt.calls} made "
+              f"{ln} launches")
         for name, n in expect.items():
             check(ln[name] == n, f"{label}: {name} launches {ln[name]}, "
                   f"expected {n}")
@@ -710,26 +1370,28 @@ def main():
               f"{min(r_[0].energy for r_ in res):.3f} kcal/mol, launches "
               f"{ln} by lanes {bl} by mode {bm}; energies vs plain rescore "
               f"max |de| {worst_:.2e}", flush=True)
-        return ln, bl, bm
+        return cnt
 
     n_win = MC_STEPS // 128
     # K4 in every BFGS of the default in-kernel search
-    _, bl_k4, bm = settings_dock(
+    cnt_k4 = settings_dock(
         "b: fused_async_ls=True", LIGANDS, MC_STEPS,
         {"async_mc_window": n_win, "bfgs_minimize": 2 * n_win + 5,
          "eval_fg": 1, "lockstep_mc_window": 0}, fused_async_ls=True)
-    check(bm["bfgs_minimize"] == {True: 2 * n_win + 5},
-          f"async_ls dock ran K2 without the flag: {bm['bfgs_minimize']}")
+    check(cnt_k4.by_mode["bfgs_minimize"] == {True: 2 * n_win + 5},
+          f"async_ls dock ran K2 without the flag: "
+          f"{cnt_k4.by_mode['bfgs_minimize']}")
     # K6 windows
-    ln_k6, _, bm = settings_dock(
+    cnt_k6 = settings_dock(
         "c: fused_warm_ls=True", LIGANDS, MC_STEPS,
         {"async_mc_window": n_win, "bfgs_minimize": 2 * n_win + 5,
          "eval_fg": 1, "lockstep_mc_window": 0}, fused_warm_ls=True)
-    check(bm["async_mc_window"] == {True: n_win},
-          f"warm_ls dock ran K3 without the flag: {bm['async_mc_window']}")
+    check(cnt_k6.by_mode["async_mc_window"] == {True: n_win},
+          f"warm_ls dock ran K3 without the flag: "
+          f"{cnt_k6.by_mode['async_mc_window']}")
     # K5 windows of 16 steps
     lock_steps = 256
-    ln_k5, _, _ = settings_dock(
+    cnt_k5 = settings_dock(
         "d: fused_async_mc=False (lockstep windows)", LIGANDS, lock_steps,
         {"lockstep_mc_window": lock_steps // 16, "async_mc_window": 0,
          "bfgs_minimize": lock_steps // 16 + 5, "eval_fg": 1},
@@ -743,6 +1405,45 @@ def main():
         {"bfgs_minimize": host_steps + host_steps // stride + 5,
          "async_mc_window": 0, "lockstep_mc_window": 0, "eval_fg": 1},
         fused_mc_in_kernel=False, fused_async_ls=True)
+
+    # ---- 5e'. K8 through dock_batch: fused_done_frac=0.9 in every mode -----
+    k8_launch = {}
+    for label, n_ligs, steps, kern, kw in (
+            ("default", LIGANDS, MC_STEPS, "bfgs_minimize", {}),
+            ("fused_async_ls", LIGANDS, MC_STEPS, "bfgs_minimize",
+             dict(fused_async_ls=True)),
+            ("fused_async_mc=False", LIGANDS, lock_steps,
+             "lockstep_mc_window", dict(fused_async_mc=False)),
+            ("fused_mc_in_kernel=False", 4, 64, "bfgs_minimize",
+             dict(fused_mc_in_kernel=False))):
+        st = DockSettings(cnn_scoring="none", num_mc_steps=steps,
+                          exhaustiveness=EXHAUSTIVENESS, fused_done_frac=0.9,
+                          **kw)
+        res, w, cnt = counted_dock(
+            fd, DockingEngine(st), rec, ligs[:n_ligs], center, size,
+            seed=args.seed + 1)
+        ln, bl, coupled = cnt.launches, cnt.by_lanes, cnt.coupled
+        check(coupled["bfgs_minimize"] == ln["bfgs_minimize"] > 0
+              and coupled["lockstep_mc_window"] == ln["lockstep_mc_window"],
+              f"done_frac dock ({label}) ran uncoupled launches: {coupled} "
+              f"of {ln}")
+        # a coupled call makes one launch per set of co-resident groups:
+        # one for a single group, at most one per group beyond
+        for name in ("bfgs_minimize", "lockstep_mc_window"):
+            for nl_, n_ in bl[name].items():
+                c_ = cnt.calls_by_lanes[name][nl_]
+                check(0 < c_ <= n_ <= c_ * -(-nl_ // fd.GROUP),
+                      f"done_frac dock ({label}): {n_} launches of {name} "
+                      f"in {c_} calls at {nl_} lanes")
+        worst_ = verify(res, n_ligs, st.out_min_rmsd)
+        k8_launch[label] = cnt
+        print(f"[5e'] dock_batch fused_done_frac=0.9, {label}: {n_ligs} "
+              f"ligands x {EXHAUSTIVENESS} chains, {steps} steps: {w:.2f} s, "
+              f"{n_ligs / w:.3f} lig/s, best "
+              f"{min(r_[0].energy for r_ in res):.3f} kcal/mol, coupled "
+              f"launches {coupled} by lanes {bl[kern]} in calls "
+              f"{cnt.calls_by_lanes[kern]}; energies vs plain rescore max "
+              f"|de| {worst_:.2e}", flush=True)
 
     # ---- 5f. the default settings with the default CNN ensemble -----------
     from gnina_tpu_torch.models.scorer import MAX_POSE_BATCH, CNNScorer
@@ -778,8 +1479,9 @@ def main():
     check(st_cnn.cnn_scoring == "rescore" and st_cnn.sort_order == "auto",
           "not the default CNN settings")
     eng_cnn = DockingEngine(st_cnn, cnn_scorer=scorer)
-    res_cnn, wall_cnn, ln, bl, bm = counted_dock(
+    res_cnn, wall_cnn, cnt = counted_dock(
         fd, eng_cnn, rec, ligs, center, size, seed=args.seed + 1)
+    ln = cnt.launches
     check(ln["async_mc_window"] == n_win and ln["eval_fg"] == 1
           and ln["bfgs_minimize"] == 2 * n_win + 5,
           f"default-settings dock launches {ln}")
@@ -860,8 +1562,9 @@ def main():
     # ---- 5g. DockSettings() as it stands: the heuristic's step count -------
     rescore.update(s=0.0, poses=0, calls=0)
     eng_def = DockingEngine(DockSettings(), cnn_scorer=scorer)
-    res_def, wall_def, ln, _, _ = counted_dock(
+    res_def, wall_def, cnt = counted_dock(
         fd, eng_def, rec, ligs, center, size, seed=args.seed + 1)
+    ln = cnt.launches
     verify(res_def, LIGANDS, 1.0, by_energy=False)
     for res in res_def:
         sc_ = [p.cnnscore for p in res]
@@ -875,6 +1578,12 @@ def main():
           f"{min(p.energy for r_ in res_def for p in r_):.3f} kcal/mol, "
           f"launches {ln}", flush=True)
     scorer.score_poses_multi = inner
+
+    # ---- 5h. the command line, at full width ------------------------------
+    cli_launches, cli_coupled, cli_walls = phase_cli(
+        S, [m_.name for m_ in scorer.models])
+    for name in ("async_mc_window", "bfgs_minimize", "eval_fg"):
+        check(cli_launches[name] > 0, f"the screen never launched {name}")
 
     # ---- 6. kernel timings at the main path's shapes ------------------------
     reps = 5
@@ -897,40 +1606,48 @@ def main():
     rows.append(dict(name="eval_fg", shape=f"L={out_lanes}", ms=ms,
                      plain_ms=pms, bound_ms=bms, bound_by=bby,
                      launches=launches["eval_fg"],
+                     calls=cnt_main.calls["eval_fg"],
                      replaces="gnina_tpu/ops/pallas_dock.py:677",
                      max_abs_err=errs["eval_fg"]))
 
     # K2 and K4 at both main-path shapes, from the starts phase 3 compared
     # on; K4's launches are those of the fused_async_ls dock
-    for async_ls, tag, counts_ in ((False, "", by_lanes["bfgs_minimize"]),
-                                   (True, "[async_ls]",
-                                    bl_k4["bfgs_minimize"])):
+    # K8's rows: the same launches with done_frac = 0.9, counted in the
+    # fused_done_frac docks of phase 5e'
+    for async_ls, frac, tag, counts_ in (
+            (False, 1.0, "", cnt_main),
+            (True, 1.0, "[async_ls]", cnt_k4),
+            (False, 0.9, "[done_frac]", k8_launch["default"]),
+            (True, 0.9, "[async_ls,done_frac]",
+             k8_launch["fused_async_ls"])):
         for label, pk, nl, sc, wm in (
                 ("refine", pack, lanes, scal_r, True),
                 ("finish", pack_out, out_lanes, scal_s, False)):
             r, t = k2_starts[label]
+            kw = dict(async_ls=async_ls, done_frac=frac)
             ms = timed(lambda: fd.bfgs_minimize(
-                terms, r, t, sc, pk, miniters, wm, async_ls=async_ls), reps)
+                terms, r, t, sc, pk, miniters, wm, **kw), reps)
             pms = timed(lambda: fd.bfgs_minimize_plain(
-                terms, r, t, sc, pk, miniters, wm, async_ls=async_ls), 2)
-            out = fd.bfgs_minimize(terms, r, t, sc, pk, miniters, wm,
-                                   async_ls=async_ls)
+                terms, r, t, sc, pk, miniters, wm, **kw), 2)
+            out = fd.bfgs_minimize(terms, r, t, sc, pk, miniters, wm, **kw)
             li = pk.lane_lig.long()
-            frac = in_cutoff_fraction(out[3], pk, li, cut2)
+            frac_in = in_cutoff_fraction(out[3], pk, li, cut2)
             stats = out[2]
             # the least work of the function: a value for each rejected
             # Armijo trial, a value and gradient for the start and each
             # accepted one (stats row 2: trials, row 4: accepted)
             ops = kernel_ops(stats[:, 2] - stats[:, 4], 1 + stats[:, 4], pk,
-                             li, frac)
+                             li, frac_in)
             nbytes = pack_bytes(pk, nl, m) + nl * 4 * (8 + 3 * pack.dims[0])
             bms, bby = bound_ms(ops, nbytes)
             name = f"bfgs_minimize{tag}/{label}"
+            line = ("715" if frac < 1.0 else "860" if async_ls else "722")
             rows.append(dict(
                 name=name, shape=f"L={nl}", ms=ms, plain_ms=pms,
-                bound_ms=bms, bound_by=bby, launches=counts_.get(nl, 0),
-                replaces="gnina_tpu/ops/pallas_dock.py:"
-                         + ("860" if async_ls else "722"),
+                bound_ms=bms, bound_by=bby,
+                launches=counts_.by_lanes["bfgs_minimize"].get(nl, 0),
+                calls=counts_.calls_by_lanes["bfgs_minimize"].get(nl, 0),
+                replaces="gnina_tpu/ops/pallas_dock.py:" + line,
                 max_abs_err=errs[name]))
 
     # K3 and K6: one window of the main path (S=128, tick budget 16); K6's
@@ -941,8 +1658,8 @@ def main():
     window_steps = {}
     for warm_ls, name, n_launch, line in (
             (False, "async_mc_window", launches["async_mc_window"], "1124"),
-            (True, "async_mc_window[warm_ls]", ln_k6["async_mc_window"],
-             "1150")):
+            (True, "async_mc_window[warm_ls]",
+             cnt_k6.launches["async_mc_window"], "1150")):
         run3 = lambda: fd.async_mc_window(
             terms, r, t, scal_h, pack, ecur, 128, 16, miniters,
             seed=args.seed + 2, warm_ls=warm_ls)
@@ -965,7 +1682,7 @@ def main():
                               int(out[2][:, 3].sum()))
         rows.append(dict(name=name, shape=f"L={lanes} S=128 b=16", ms=ms,
                          plain_ms=pms, bound_ms=bms, bound_by=bby,
-                         launches=n_launch,
+                         launches=n_launch, calls=n_launch,
                          replaces=f"gnina_tpu/ops/pallas_dock.py:{line}",
                          max_abs_err=errs[name]))
 
@@ -988,9 +1705,32 @@ def main():
     bms, bby = bound_ms(ops, nbytes)
     rows.append(dict(name="lockstep_mc_window", shape=f"L={lanes} S=16",
                      ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                     launches=ln_k5["lockstep_mc_window"],
+                     launches=cnt_k5.launches["lockstep_mc_window"],
+                     calls=cnt_k5.calls["lockstep_mc_window"],
                      replaces="gnina_tpu/ops/pallas_dock.py:1290",
                      max_abs_err=errs["lockstep_mc_window"]))
+
+    # K8 in K5: the same window with done_frac = 0.9
+    run5c = lambda: fd.lockstep_mc_window(terms, r, t, scal_h, pack, ecur, 16,
+                                          miniters, seed=args.seed + 2,
+                                          done_frac=0.9)
+    ms = timed(run5c, reps)
+    pms = timed(lambda: fd.lockstep_mc_window_plain(
+        terms, r, t, scal_h, pack, ecur, 16, miniters,
+        generator=gen.manual_seed(args.seed + 2), done_frac=0.9), 1)
+    out = run5c()
+    frac = in_cutoff_fraction(out[3], pack, pack.lane_lig.long(), cut2)
+    ops = kernel_ops(out[2][:, 2] - out[2][:, 4], 16 + out[2][:, 4], pack,
+                     pack.lane_lig.long(), frac)
+    bms, bby = bound_ms(ops, nbytes)
+    rows.append(dict(
+        name="lockstep_mc_window[done_frac]", shape=f"L={lanes} S=16", ms=ms,
+        plain_ms=pms, bound_ms=bms, bound_by=bby,
+        launches=k8_launch["fused_async_mc=False"].launches[
+            "lockstep_mc_window"],
+        calls=k8_launch["fused_async_mc=False"].calls["lockstep_mc_window"],
+        replaces="gnina_tpu/ops/pallas_dock.py:715",
+        max_abs_err=errs["lockstep_mc_window[done_frac]"]))
 
     # K7: K1's launch with the gradient laid into the coordinate rows; its
     # launches on the main path are K1's (the rescore returns the gradient
@@ -1003,15 +1743,20 @@ def main():
         plain_ms=timed(lambda: fd.eval_fg_plain(terms, r, t, scal_r,
                                                 pack_out), reps),
         bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
-        launches=k1["launches"],
+        launches=k1["launches"], calls=k1["calls"],
         replaces="gnina_tpu/ops/pallas_dock.py:960",
         max_abs_err=errs["debug_grad"]))
+    rows.extend(probe_rows)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} not on the main path")
+        lib = ("no single PyTorch call computes it"
+               if row.get("library_ms") is None else
+               f"torch.matmul on the same operands {row['library_ms']:.3f} "
+               f"ms")
         print(f"[6] {row['name']} {row['shape']}: {row['ms']:.3f} ms "
-              f"(plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f}"
-              f" ms by {row['bound_by']}), {row['launches']} launches per "
-              f"dock_batch; no single PyTorch call computes it", flush=True)
+              f"(plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f}"
+              f" ms by {row['bound_by']}), {row['launches']} launches in "
+              f"{row['calls']} calls on its path; {lib}", flush=True)
 
     print("[6] one window of 128 steps x 16 ticks from the same starts and "
           "seed: " + "; ".join(
@@ -1035,11 +1780,13 @@ def main():
 
     table = {"kernels": [dict(
         name=row["name"], route="cuda",
-        source="gnina_tpu_torch/csrc/fused_dock.cu",
+        source=row.get("source", "gnina_tpu_torch/csrc/fused_dock.cu"),
         replaces=row["replaces"], launches=row["launches"],
+        calls=row["calls"],
         max_abs_err=row["max_abs_err"], ms=row["ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by=row["bound_by"], library_ms=None) for row in rows]}
+        bound_by=row["bound_by"], library_ms=row.get("library_ms"))
+        for row in rows]}
     print(smi)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

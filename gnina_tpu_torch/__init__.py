@@ -3,11 +3,14 @@
 A second package beside the JAX one.  It imports torch and numpy, never
 jax and never gnina_tpu.  Ported so far: the fused docking route,
 `DockingEngine.dock_batch`, in every search setting, whose kernels (the
-fused value+gradient, truncated BFGS in both line-search modes, and the
-async and lockstep in-kernel Monte Carlo) are hand-written CUDA for sm_90a
-in csrc/fused_dock.cu, built on first CUDA use; and the CNN rescore
-(models/, ops/voxelize.py), whose convolutions and matrix products are
-library calls as in the JAX package.
+fused value+gradient, truncated BFGS in both line-search modes, the async
+and lockstep in-kernel Monte Carlo, and the done_frac group stop) are
+hand-written CUDA for sm_90a in csrc/fused_dock.cu, built on first CUDA
+use; the CNN rescore (models/, ops/voxelize.py), whose convolutions and
+matrix products are library calls as in the JAX package; the command line
+(`python -m gnina_tpu_torch`, cli.py) with score_only, minimize (ops/bfgs.py),
+randomize and the screen, and its writers (output.py,
+scoring/atom_terms.py); and the rate probes (probes.py, csrc/probes.cu).
 
 Float32 matmuls and convolutions run in full float32: TF32 is switched off
 here, at the package's entry, because the pose math (FK origins, RMSD Gram

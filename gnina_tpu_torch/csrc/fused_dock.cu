@@ -18,6 +18,12 @@
 //   gt_lockstep_mc_window  K5: step-indexed in-kernel Monte Carlo (mc_body
 //                       :1290): every step runs one whole BFGS, no tick
 //                       budget
+//   done_frac < 1       K8: the group stop of both BFGS loops (:715-720, read
+//                       at :733 and :869): 128 consecutive poses form a
+//                       group, and the loop of every pose in it ends at the
+//                       iteration (or tick) at which done_frac of the group
+//                       reads done.  A mode of gt_bfgs_minimize and
+//                       gt_lockstep_mc_window (see GroupSync below)
 // The plain PyTorch versions in gnina_tpu_torch/ops/fused_dock.py compute
 // the same functions step for step.
 //
@@ -45,6 +51,7 @@
 #define C0 1e-4f
 #define N_DRAWS 13
 #define PI_F 3.14159265358979f
+#define GROUP 128           // poses per done_frac group (the TPU block's lanes)
 
 struct PackArgs {
   const float* lc;       // (G, N, 3)
@@ -565,7 +572,61 @@ struct BfgsResult {
   float n_evals;         // Armijo trial evaluations
   float n_iters;         // iterations entered (async_ls: accepted steps)
   float n_acc;           // accepted steps
+  float g_iters;         // coupled: iterations (ticks) the pose's group ran
 };
+
+// K8, the group stop (done_frac < 1).  The TPU kernel sums its done flags
+// over the 128 lanes of a block, all at the same iteration; here a pose is a
+// thread block, so the blocks of a group meet once per iteration at a
+// counter in global memory: one word per (group, iteration), arrivals in the
+// high half and done flags in the low half, added in one atomic.  A block
+// spins until every block of its group has arrived and then reads the same
+// sum as the others, so the stop does not depend on how blocks are
+// scheduled.  The launch is cooperative (all blocks co-resident, or it
+// fails), a finished pose keeps arriving until its group stops, and each
+// word is used once, so nothing is reset inside the kernel.  What bounds it:
+// one L2 atomic and one poll loop per iteration against an iteration of
+// some 10-100 us, and the wait for the group's slowest pose, which is the
+// lockstep the TPU kernel had.
+struct GroupSync {
+  unsigned int* slots;   // this group's words; null = uncoupled
+  int nblocks;           // real poses of the group
+  int pad;               // inert lanes the TPU block is padded with: they
+                         // read done from the first iteration on
+  int target;            // int(done_frac * 128)
+};
+
+__device__ inline GroupSync group_sync(unsigned int* gsync, int slots_per_group,
+                                       int done_target, int lane, int L) {
+  GroupSync gs = {nullptr, 0, 0, 0};
+  if (gsync) {
+    const int g = lane / GROUP;
+    gs.slots = gsync + (size_t)g * slots_per_group;
+    gs.nblocks = min(GROUP, L - g * GROUP);
+    gs.pad = GROUP - gs.nblocks;
+    gs.target = done_target;
+  }
+  return gs;
+}
+
+// Arrive at the group's word for this iteration with the pose's done flag
+// and return the group's done count (padding included).  Every thread of
+// the block calls it.
+__device__ int group_vote(const Smem& s, const GroupSync& gs, int slot,
+                          bool donef) {
+  if (threadIdx.x == 0) {
+    unsigned int* w = gs.slots + slot;
+    atomicAdd(w, 0x10000u + (donef ? 1u : 0u));
+    unsigned int v;
+    while (((v = *(volatile unsigned int*)w) >> 16) < (unsigned)gs.nblocks)
+      __nanosleep(64);
+    s.sc[S_FLAG] = (float)(v & 0xffffu);
+  }
+  __syncthreads();
+  const int cnt = (int)s.sc[S_FLAG] + gs.pad;
+  __syncthreads();
+  return cnt;
+}
 
 // One truncated BFGS from the pose in (s.s_rig, s.s_tor) to (s.x_rig,
 // s.x_tor): Armijo backtracking (alpha = factor^-t, t < num_trials, first
@@ -587,90 +648,139 @@ struct BfgsResult {
 // point, rejected or not, and a tick that finds no descent direction still
 // evaluates its trial point.  Otherwise s.coords is whatever the last
 // evaluation left.
+//
+// gs (K8): with gs.slots set the loop is coupled to the pose's group.  After
+// every iteration (tick) the pose votes its done flag as the TPU loop holds
+// it at that point, and the loop ends for the whole group once the count
+// reaches gs.target.  The lockstep flag is not sticky (:818-819): a converged
+// pose, or one without a descent direction, reads |g|^2 < 1e-4 from then
+// on; a pose that ran out of trials reads done at that iteration and at
+// every second one after it, and in between |g|^2 < 1e-4.  The async flag
+// is the pose's own stop and is sticky (:923-928).  A target of 0
+// (done_frac < 1/128) is reached before the first iteration, as in the TPU
+// loop's test, so the loop runs none.  slot0 is the group's first word for
+// this run.
 __device__ BfgsResult bfgs_run(const Smem& s, const PackArgs& pk,
                                const TermArgs& tm, const float* sv, int nh,
                                int maxiters, int num_trials, float log2_factor,
-                               bool async_ls, bool last_fk) {
+                               bool async_ls, bool last_fk,
+                               const GroupSync& gs, int slot0) {
   const int M = pk.M, D = pk.D, t = threadIdx.x;
+  const bool coupled = gs.slots != nullptr;
+  const bool no_iters = coupled && gs.target <= 0;
   copy_pose(s.s_rig, s.s_tor, s.x_rig, s.x_tor, M);
   eval_pose<true>(s, pk, tm, sv, nh, s.x_rig, s.x_tor, s.g);
   const float f_init = s.sc[S_E], met_init = s.sc[S_MET];
   float f0 = f_init, met = met_init;
   set_eye(s.h, 1.0f, D);
-  BfgsResult out = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  BfgsResult out = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (!async_ls) {
-    for (int it = 0; it < maxiters; ++it) {
-      neg_hdot(s.h, s.g, s.dofm, s.p, D);
-      if (t == 0) s.sc[S_PG] = dotD(s.p, s.g, D);
-      __syncthreads();
-      const float pg = s.sc[S_PG];
-      if (pg >= 0.0f) break;                 // no descent direction
-      out.n_iters += 1.0f;
-      bool accepted = false;
-      float alpha = 0.0f, f1 = 0.0f, fm1 = 0.0f;
-      for (int tr = 0; tr < num_trials; ++tr) {
-        alpha = exp2f(-(float)tr * log2_factor);
-        increment(s, s.x_rig, s.x_tor, s.p, alpha, s.t_rig, s.t_tor, M);
-        eval_pose<false>(s, pk, tm, sv, nh, s.t_rig, s.t_tor, nullptr);
-        out.n_evals += 1.0f;
-        f1 = s.sc[S_E];
-        fm1 = s.sc[S_MET];
+    // fin: 0 running, 1 converged or no descent direction, 2 out of trials
+    int fin = 0, fin_it = 0, it = 0;
+    const int iters = no_iters ? 0 : maxiters;
+    for (; it < iters; ++it) {
+      if (!fin) {
+        neg_hdot(s.h, s.g, s.dofm, s.p, D);
+        if (t == 0) s.sc[S_PG] = dotD(s.p, s.g, D);
         __syncthreads();
-        if ((f1 - f0) < C0 * alpha * pg) { accepted = true; break; }
+        const float pg = s.sc[S_PG];
+        if (pg >= 0.0f) {
+          fin = 1;                             // no descent direction
+        } else {
+          out.n_iters += 1.0f;
+          bool accepted = false;
+          float alpha = 0.0f, f1 = 0.0f, fm1 = 0.0f;
+          for (int tr = 0; tr < num_trials; ++tr) {
+            alpha = exp2f(-(float)tr * log2_factor);
+            increment(s, s.x_rig, s.x_tor, s.p, alpha, s.t_rig, s.t_tor, M);
+            eval_pose<false>(s, pk, tm, sv, nh, s.t_rig, s.t_tor, nullptr);
+            out.n_evals += 1.0f;
+            f1 = s.sc[S_E];
+            fm1 = s.sc[S_MET];
+            __syncthreads();
+            if ((f1 - f0) < C0 * alpha * pg) { accepted = true; break; }
+          }
+          if (!accepted) {
+            fin = 2;                           // stuck: no step can follow
+            fin_it = it;
+          } else {
+            out.n_acc += 1.0f;
+            eval_pose<true>(s, pk, tm, sv, nh, s.t_rig, s.t_tor, s.gn);
+            diff_stats(s, D);
+            if (it == 0) first_scale(s, alpha, D);
+            const bool conv = s.sc[S_GSQ] < 1e-4f;
+            const bool ok_h = alpha * s.sc[S_YP] >= EPS_FL;
+            if (ok_h && !conv) bfgs_update(s, alpha, D);
+            copy_pose(s.t_rig, s.t_tor, s.x_rig, s.x_tor, M);
+            copy_vec(s.gn, s.g, D);
+            f0 = f1;
+            met = fm1;
+            if (conv) fin = 1;
+          }
+        }
       }
-      if (!accepted) break;                  // stuck: no step can follow
-      out.n_acc += 1.0f;
-      eval_pose<true>(s, pk, tm, sv, nh, s.t_rig, s.t_tor, s.gn);
-      diff_stats(s, D);
-      if (it == 0) first_scale(s, alpha, D);
-      const bool conv = s.sc[S_GSQ] < 1e-4f;
-      const bool ok_h = alpha * s.sc[S_YP] >= EPS_FL;
-      if (ok_h && !conv) bfgs_update(s, alpha, D);
-      copy_pose(s.t_rig, s.t_tor, s.x_rig, s.x_tor, M);
-      copy_vec(s.gn, s.g, D);
-      f0 = f1;
-      met = fm1;
-      if (conv) break;
+      if (!coupled) {
+        if (fin) break;
+        continue;
+      }
+      bool donef = false;
+      if (fin) {
+        if (t == 0) s.sc[S_GSQ] = dotD(s.g, s.g, D);
+        __syncthreads();
+        donef = s.sc[S_GSQ] < 1e-4f
+                || (fin == 2 && ((it - fin_it) & 1) == 0);
+      }
+      if (group_vote(s, gs, slot0 + it, donef) >= gs.target) { ++it; break; }
     }
+    if (coupled) out.g_iters = (float)it;
   } else {
-    const int max_ticks = maxiters * num_trials + 1;
+    const int max_ticks = no_iters ? 0 : maxiters * num_trials + 1;
     float tl = 0.0f;
-    int itl = 0;
-    for (int tick = 0; tick < max_ticks; ++tick) {
-      neg_hdot(s.h, s.g, s.dofm, s.p, D);
-      if (t == 0) s.sc[S_PG] = dotD(s.p, s.g, D);
-      __syncthreads();
-      const float pg = s.sc[S_PG];
-      const float alpha = exp2f(-tl * log2_factor);
-      increment(s, s.x_rig, s.x_tor, s.p, alpha, s.t_rig, s.t_tor, M);
-      if (pg >= 0.0f) {                      // done at once (:879)
-        if (last_fk) fk(s, s.t_rig, s.t_tor, pk.N, M, pk.LY);
-        break;
+    int itl = 0, tick = 0;
+    bool done = false;
+    for (; tick < max_ticks; ++tick) {
+      if (!done) {
+        neg_hdot(s.h, s.g, s.dofm, s.p, D);
+        if (t == 0) s.sc[S_PG] = dotD(s.p, s.g, D);
+        __syncthreads();
+        const float pg = s.sc[S_PG];
+        const float alpha = exp2f(-tl * log2_factor);
+        increment(s, s.x_rig, s.x_tor, s.p, alpha, s.t_rig, s.t_tor, M);
+        if (pg >= 0.0f) {                      // done at once (:879)
+          if (last_fk) fk(s, s.t_rig, s.t_tor, pk.N, M, pk.LY);
+          done = true;
+        } else {
+          eval_pose<true>(s, pk, tm, sv, nh, s.t_rig, s.t_tor, s.gn);
+          out.n_evals += 1.0f;                 // active ticks (:888)
+          const float f1 = s.sc[S_E], fm1 = s.sc[S_MET];
+          __syncthreads();
+          if ((f1 - f0) < C0 * alpha * pg) {
+            out.n_acc += 1.0f;                 // accepts (:889)
+            diff_stats(s, D);
+            if (itl == 0) first_scale(s, alpha, D);
+            itl += 1;
+            done = s.sc[S_GSQ] < 1e-4f || itl >= maxiters;
+            const bool ok_h = alpha * s.sc[S_YP] >= EPS_FL;
+            if (ok_h && !done) bfgs_update(s, alpha, D);
+            copy_pose(s.t_rig, s.t_tor, s.x_rig, s.x_tor, M);
+            copy_vec(s.gn, s.g, D);
+            f0 = f1;
+            met = fm1;
+            tl = 0.0f;
+          } else {
+            tl += 1.0f;
+            done = tl >= (float)num_trials;    // stuck
+          }
+        }
       }
-      eval_pose<true>(s, pk, tm, sv, nh, s.t_rig, s.t_tor, s.gn);
-      out.n_evals += 1.0f;                   // active ticks (:888)
-      const float f1 = s.sc[S_E], fm1 = s.sc[S_MET];
-      __syncthreads();
-      if ((f1 - f0) < C0 * alpha * pg) {
-        out.n_acc += 1.0f;                   // accepts (:889)
-        diff_stats(s, D);
-        if (itl == 0) first_scale(s, alpha, D);
-        itl += 1;
-        const bool done = s.sc[S_GSQ] < 1e-4f || itl >= maxiters;
-        const bool ok_h = alpha * s.sc[S_YP] >= EPS_FL;
-        if (ok_h && !done) bfgs_update(s, alpha, D);
-        copy_pose(s.t_rig, s.t_tor, s.x_rig, s.x_tor, M);
-        copy_vec(s.gn, s.g, D);
-        f0 = f1;
-        met = fm1;
-        tl = 0.0f;
+      if (!coupled) {
         if (done) break;
-      } else {
-        tl += 1.0f;
-        if (tl >= (float)num_trials) break;  // stuck
+        continue;
       }
+      if (group_vote(s, gs, slot0 + tick, done) >= gs.target) { ++tick; break; }
     }
     out.n_iters = out.n_acc;
+    if (coupled) out.g_iters = (float)tick;
   }
   if (last_fk && !async_ls) fk(s, s.x_rig, s.x_tor, pk.N, M, pk.LY);
   // restore original if not improved (bfgs.h:491, NaN-safe)
@@ -687,13 +797,16 @@ __device__ BfgsResult bfgs_run(const Smem& s, const PackArgs& pk,
 // K2 / K4: one truncated BFGS per pose.  stats (L, 8) = [f, metro, trial
 // evaluations, iterations, accepted iterations, 0...]; under async_ls rows
 // 2 and 3 are the pose's active ticks and accepts (cnt_s of the JAX kernel).
+// With gsync set (K8) the launch holds whole groups from lane0 on, and stats
+// row 5 is the number of iterations (ticks) the pose's group ran.
 __global__ void __launch_bounds__(NT) k_bfgs(
     PackArgs pk, TermArgs tm, const float* rigid0, const float* tors0,
     const float* scal, int maxiters, int want_metro, int num_trials,
     float log2_factor, int async_ls, float* orig, float* otor, float* stats,
-    float* ocoords) {
+    float* ocoords, unsigned int* gsync, int slots_per_group, int done_target,
+    int lane0) {
   extern __shared__ float smem[];
-  const int lane = blockIdx.x, t = threadIdx.x;
+  const int lane = lane0 + blockIdx.x, t = threadIdx.x;
   const int lig = pk.lane_lig[lane];
   const int M = pk.M;
   Smem s = carve(smem, pk.N, M, pk.D);
@@ -704,8 +817,10 @@ __global__ void __launch_bounds__(NT) k_bfgs(
   if (t < 8) s.s_rig[t] = rigid0[(size_t)lane * 8 + t];
   if (t < M) s.s_tor[t] = tors0[(size_t)lane * M + t];
   __syncthreads();
+  const GroupSync gs = group_sync(gsync, slots_per_group, done_target, lane,
+                                  pk.L);
   const BfgsResult res = bfgs_run(s, pk, tm, sv, nh, maxiters, num_trials,
-                                  log2_factor, async_ls != 0, false);
+                                  log2_factor, async_ls != 0, false, gs, 0);
   fk(s, s.x_rig, s.x_tor, pk.N, M, pk.LY);
   write_pose_out(s, s.x_rig, s.x_tor, lane, pk.N, M, orig, otor, ocoords);
   if (t == 0) {
@@ -715,6 +830,7 @@ __global__ void __launch_bounds__(NT) k_bfgs(
     st[2] = res.n_evals;
     st[3] = res.n_iters;
     st[4] = res.n_acc;
+    st[5] = res.g_iters;
   }
 }
 
@@ -954,15 +1070,18 @@ __global__ void __launch_bounds__(NT) k_async_mc(
 // trial evaluations, iterations, accepted iterations, 0...].  The
 // coordinates returned are those of the last step's last BFGS evaluation
 // (bfgs_run's last_fk), not a fresh FK of the final chain state (the JAX
-// kernel returns its last FK).
+// kernel returns its last FK).  With gsync set (K8) every step's BFGS is
+// coupled to the pose's group, on its own run of words, and stats row 5 sums
+// the iterations (ticks) the group ran over the steps.
 __global__ void __launch_bounds__(NT) k_lockstep_mc(
     PackArgs pk, TermArgs tm, const float* rigid0, const float* tors0,
     const float* scal, const float* ecur0, const float* uniforms,
     uint32_t seed, int mc_steps, int maxiters, int num_trials,
     float log2_factor, int async_ls, float* orig, float* otor, float* stats,
-    float* ocoords, float* srig, float* stor, float* sstat) {
+    float* ocoords, float* srig, float* stor, float* sstat,
+    unsigned int* gsync, int slots_per_group, int done_target, int lane0) {
   extern __shared__ float smem[];
-  const int lane = blockIdx.x, t = threadIdx.x;
+  const int lane = lane0 + blockIdx.x, t = threadIdx.x;
   const int lig = pk.lane_lig[lane];
   const int M = pk.M, D = pk.D, L = pk.L;
   Smem s = carve(smem, pk.N, M, D);
@@ -975,8 +1094,10 @@ __global__ void __launch_bounds__(NT) k_lockstep_mc(
   if (t < M) s.c_tor[t] = tors0[(size_t)lane * M + t];
   __syncthreads();
   float e_cur = ecur0[lane];
-  float n_evals = 0.0f, n_iters = 0.0f, n_acc = 0.0f;
+  float n_evals = 0.0f, n_iters = 0.0f, n_acc = 0.0f, g_iters = 0.0f;
   const uint2 key = make_uint2(seed, (uint32_t)lane);
+  const GroupSync gs = group_sync(gsync, slots_per_group, done_target, lane, L);
+  const int run_slots = async_ls ? maxiters * num_trials + 1 : maxiters;
   if (mc_steps == 0) fk(s, s.c_rig, s.c_tor, pk.N, M, pk.LY);
   for (int step = 0; step < mc_steps; ++step) {
     draw_uniforms(s, uniforms, step, L, lane, key);
@@ -985,7 +1106,9 @@ __global__ void __launch_bounds__(NT) k_lockstep_mc(
     const float gr = gyration(s, s.c_rig, nh);
     mutate(s, s.c_rig, s.c_tor, gr, u, amp, s.s_rig, s.s_tor, M, D);
     const BfgsResult res = bfgs_run(s, pk, tm, sv, nh, maxiters, num_trials,
-                                    log2_factor, async_ls != 0, true);
+                                    log2_factor, async_ls != 0, true, gs,
+                                    step * run_slots);
+    g_iters += res.g_iters;
     n_evals += res.n_evals;
     n_iters += res.n_iters;
     n_acc += res.n_acc;
@@ -1009,7 +1132,7 @@ __global__ void __launch_bounds__(NT) k_lockstep_mc(
   if (t == 0) {
     float* st = stats + (size_t)lane * 8;
     st[0] = e_cur; st[1] = e_cur; st[2] = n_evals; st[3] = n_iters;
-    st[4] = n_acc;
+    st[4] = n_acc; st[5] = g_iters;
   }
 }
 
@@ -1025,6 +1148,36 @@ static int launch_setup(const void* kernel, const PackArgs* pk, size_t* smem) {
   return 0;
 }
 
+// K8: launch whole groups cooperatively, as many at a time as are
+// co-resident; groups are independent, so the rest follow in turn on the same
+// stream.  lane0 is the kernel argument (one of args) naming the launch's
+// first lane; *launched counts the launches made.
+static int launch_groups(const void* kernel, int lanes, size_t smem,
+                         cudaStream_t stream, void** args, int* lane0,
+                         int* launched) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int fit = (per_sm * sms) / GROUP * GROUP;
+  if (fit < GROUP) return (int)cudaErrorCooperativeLaunchTooLarge;
+  for (int l0 = 0; l0 < lanes; l0 += fit) {
+    *lane0 = l0;
+    const int nb = lanes - l0 < fit ? lanes - l0 : fit;
+    err = cudaLaunchCooperativeKernel(kernel, dim3(nb), dim3(NT), args, smem,
+                                      stream);
+    if (err != cudaSuccess) return (int)err;
+    ++*launched;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Every gt_* entry point below writes the number of kernel launches it made
+// to *launched (a host int): 1, or under K8 one per set of co-resident groups.
 extern "C" {
 
 const char* gt_error_string(int code) {
@@ -1033,13 +1186,16 @@ const char* gt_error_string(int code) {
 
 int gt_eval_fg(const PackArgs* pk, const TermArgs* tm, const float* rigid,
                const float* tors, const float* scal, float* out_e,
-               float* out_met, float* out_g, float* out_coords, void* stream) {
+               float* out_met, float* out_g, float* out_coords, void* stream,
+               int* launched) {
+  *launched = 0;
   size_t smem;
   int rc = launch_setup((const void*)k_eval_fg, pk, &smem);
   if (rc) return rc;
   if (pk->L == 0) return 0;
   k_eval_fg<<<pk->L, NT, smem, (cudaStream_t)stream>>>(
       *pk, *tm, rigid, tors, scal, out_e, out_met, out_g, out_coords);
+  *launched = 1;
   return (int)cudaGetLastError();
 }
 
@@ -1047,14 +1203,27 @@ int gt_bfgs_minimize(const PackArgs* pk, const TermArgs* tm, const float* rigid,
                      const float* tors, const float* scal, int maxiters,
                      int want_metro, int num_trials, float log2_factor,
                      int async_ls, float* orig, float* otor, float* stats,
-                     float* ocoords, void* stream) {
+                     float* ocoords, unsigned int* gsync, int slots_per_group,
+                     int done_target, void* stream, int* launched) {
+  *launched = 0;
   size_t smem;
   int rc = launch_setup((const void*)k_bfgs, pk, &smem);
   if (rc) return rc;
   if (pk->L == 0) return 0;
+  int lane0 = 0;
+  if (gsync) {
+    PackArgs pkv = *pk;
+    TermArgs tmv = *tm;
+    void* args[] = {&pkv, &tmv, &rigid, &tors, &scal, &maxiters, &want_metro,
+                    &num_trials, &log2_factor, &async_ls, &orig, &otor, &stats,
+                    &ocoords, &gsync, &slots_per_group, &done_target, &lane0};
+    return launch_groups((const void*)k_bfgs, pk->L, smem,
+                         (cudaStream_t)stream, args, &lane0, launched);
+  }
   k_bfgs<<<pk->L, NT, smem, (cudaStream_t)stream>>>(
       *pk, *tm, rigid, tors, scal, maxiters, want_metro, num_trials, log2_factor,
-      async_ls, orig, otor, stats, ocoords);
+      async_ls, orig, otor, stats, ocoords, nullptr, 0, 0, 0);
+  *launched = 1;
   return (int)cudaGetLastError();
 }
 
@@ -1064,7 +1233,9 @@ int gt_async_mc_window(const PackArgs* pk, const TermArgs* tm,
                        int mc_steps, int tick_budget, int maxiters,
                        int num_trials, float log2_factor, int warm_ls,
                        float* orig, float* otor, float* stats, float* ocoords,
-                       float* srig, float* stor, float* sstat, void* stream) {
+                       float* srig, float* stor, float* sstat, void* stream,
+                       int* launched) {
+  *launched = 0;
   size_t smem;
   int rc = launch_setup((const void*)k_async_mc, pk, &smem);
   if (rc) return rc;
@@ -1073,6 +1244,7 @@ int gt_async_mc_window(const PackArgs* pk, const TermArgs* tm,
       *pk, *tm, rigid, tors, scal, ecur, uniforms, seed, mc_steps, tick_budget,
       maxiters, num_trials, log2_factor, warm_ls, orig, otor, stats, ocoords,
       srig, stor, sstat);
+  *launched = 1;
   return (int)cudaGetLastError();
 }
 
@@ -1083,15 +1255,30 @@ int gt_lockstep_mc_window(const PackArgs* pk, const TermArgs* tm,
                           int maxiters, int num_trials, float log2_factor,
                           int async_ls, float* orig, float* otor, float* stats,
                           float* ocoords, float* srig, float* stor,
-                          float* sstat, void* stream) {
+                          float* sstat, unsigned int* gsync,
+                          int slots_per_group, int done_target, void* stream,
+                          int* launched) {
+  *launched = 0;
   size_t smem;
   int rc = launch_setup((const void*)k_lockstep_mc, pk, &smem);
   if (rc) return rc;
   if (pk->L == 0) return 0;
+  int lane0 = 0;
+  if (gsync) {
+    PackArgs pkv = *pk;
+    TermArgs tmv = *tm;
+    void* args[] = {&pkv, &tmv, &rigid, &tors, &scal, &ecur, &uniforms, &seed,
+                    &mc_steps, &maxiters, &num_trials, &log2_factor, &async_ls,
+                    &orig, &otor, &stats, &ocoords, &srig, &stor, &sstat,
+                    &gsync, &slots_per_group, &done_target, &lane0};
+    return launch_groups((const void*)k_lockstep_mc, pk->L, smem,
+                         (cudaStream_t)stream, args, &lane0, launched);
+  }
   k_lockstep_mc<<<pk->L, NT, smem, (cudaStream_t)stream>>>(
       *pk, *tm, rigid, tors, scal, ecur, uniforms, seed, mc_steps, maxiters,
       num_trials, log2_factor, async_ls, orig, otor, stats, ocoords, srig,
-      stor, sstat);
+      stor, sstat, nullptr, 0, 0, 0);
+  *launched = 1;
   return (int)cudaGetLastError();
 }
 

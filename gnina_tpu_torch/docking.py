@@ -18,8 +18,9 @@ fused_warm_ls the warm-started line search of the async window (K6).
 The fused route is the route on every device: kernels on `cuda`, their
 plain versions on `cpu` (only when the caller asks for the CPU).  Jobs it
 does not take (flex residues, covalent, user grids, non-vina terms, CNN in
-the loop, fused_search="off", fused_done_frac < 1) raise
-NotImplementedError: they are not ported yet (ROADMAP.md, Queues 1 and 2).
+the loop, fused_search="off") raise NotImplementedError: they are not
+ported yet (ROADMAP.md, Queue 1).  fused_done_frac < 1 goes to all three
+kernel handles (K8), as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -37,11 +38,12 @@ from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.ops import fk, mc
 from gnina_tpu_torch.ops import fused_dock as fd
 from gnina_tpu_torch.ops import mc_fused
-from gnina_tpu_torch.ops.energy import Box, EnergyFn
+from gnina_tpu_torch.ops.bfgs import MinimizeParams, bfgs
+from gnina_tpu_torch.ops.energy import Box, EnergyFn, make_energy_fn
 from gnina_tpu_torch.scoring.builtin import get_scoring_function
 from gnina_tpu_torch.scoring.weighted import ScoringFunction
 from gnina_tpu_torch.types import Conf, LigandData, ReceptorData, \
-    initial_conf, pad_ligand
+    initial_conf, pad_ligand, pad_receptor
 
 _GENERAL_PATH = ("is not on the fused route; the general docking path is "
                  "not ported yet (ROADMAP.md, Queue 1: general path, "
@@ -169,6 +171,9 @@ class DockingEngine:
         self.sf = sf if sf is not None else get_scoring_function(settings.scoring)
         self.cnn = cnn_scorer
         self.device = resolve_device(device)
+        # optional search progress sink (the reference's parallel_progress
+        # bar); the CLI wires this at --verbosity >= 2
+        self.progress = None  # Callable[[str], None] | None
 
     # -- eligibility ----------------------------------------------------------
 
@@ -192,11 +197,6 @@ class DockingEngine:
                 "port's kernels take their shapes at run time")
         if s.simple_ascent or s.minimize_single_full:
             raise NotImplementedError(f"the testing minimizers {_GENERAL_PATH}")
-        if s.fused_done_frac < 1.0:
-            raise NotImplementedError(
-                "fused_done_frac < 1 stops a lockstep loop on a share of one "
-                "TPU block's 128 lanes; its counterpart for one thread block "
-                "per pose is still to port (ROADMAP.md, Queue 2: done_frac)")
         for l in ligs:
             if l.num_lig_atoms not in (-1, l.num_atoms):
                 raise NotImplementedError(f"flex residues {_GENERAL_PATH}")
@@ -274,6 +274,238 @@ class DockingEngine:
                                       tors, scal, pack)
         return e_inter.cpu().numpy(), (e - e_inter).cpu().numpy()
 
+    def term_values(self, rec: Receptor, lig: LigandStruct) -> List[float]:
+        """Per-term unweighted rec-lig sums at the input pose, the "Term
+        values, before weighting" row of --score_only (main.cpp:252-264,
+        terms.h evale_robust).  Ordinary PyTorch on the engine's device: one
+        (atoms, receptor atoms) distance matrix, each term broadcast over it
+        (no kernel)."""
+        from gnina_tpu_torch.scoring.terms import gather_type_params
+
+        dev = self.device
+        center = lig.orig_coords.mean(axis=0)
+        size = np.full(3, 2 * (self.sf.cutoff + lig.max_span()), np.float32)
+        pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                            margin=self.sf.cutoff)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        diff = (f32(lig.orig_coords)[:, None, :]
+                - f32(pruned.coords)[None, :, :])
+        r = torch.sqrt((diff ** 2).sum(-1))
+        heavy = torch.as_tensor(
+            ~IS_HYDROGEN[lig.types][:, None]
+            & ~IS_HYDROGEN[np.asarray(pruned.types)][None, :], device=dev)
+        mask = (r < self.sf.cutoff) & heavy
+        pa = {k: v[:, None] for k, v in
+              gather_type_params(self.sf.table, lig.types, dev).items()}
+        pb = {k: v[None, :] for k, v in
+              gather_type_params(self.sf.table, pruned.types, dev).items()}
+        qa, qb = f32(lig.charges)[:, None], f32(pruned.charges)[None, :]
+        vals = torch.stack([
+            torch.where(mask, t.eval(pa, pb, r, qa=qa, qb=qb), 0.0).sum()
+            for t in self.sf.pair_terms])
+        return [float(v) for v in vals.cpu()]
+
+    # -- local minimization (--minimize / --local_only) -----------------------
+
+    def _prepare(self, rec: Receptor, lig: LigandStruct, center, size):
+        """Padded ligand and pruned receptor tensors, the box and the tree
+        depth for the general path's energy function."""
+        dev = self.device
+        pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                            margin=self.sf.cutoff)
+        n, m = _round_up(lig.num_atoms, 8), _round_up(lig.num_nodes, 4)
+        p = _round_up(max(len(lig.pairs), 1), 32)
+        k = _round_up(len(pruned.types), 128)
+        lig_d = pad_ligand(lig, n, m, p, device=dev)
+        rec_d = pad_receptor(pruned.coords, pruned.types, pruned.charges, k,
+                             device=dev)
+        lo, hi = box_from_center_size(center, size)
+        box = Box(lo=torch.as_tensor(lo, device=dev),
+                  hi=torch.as_tensor(hi, device=dev))
+        max_layers = _round_up(int(lig.layer.max()) if lig.num_nodes > 1
+                               else 1, 4)
+        return lig_d, rec_d, box, max_layers
+
+    def _general_eligible(self, lig: LigandStruct) -> None:
+        """Raise NotImplementedError for what the ported part of the general
+        path does not take."""
+        if self.settings.simple_ascent or self.settings.minimize_single_full:
+            raise NotImplementedError(
+                "the testing minimizers (simple_ascent, "
+                "minimize_single_full) are not ported yet (ROADMAP.md, "
+                "Queue 1 item 11)")
+        if lig.num_lig_atoms not in (-1, lig.num_atoms) or (
+                lig.other_pairs is not None and len(lig.other_pairs)):
+            raise NotImplementedError(
+                "flex residues are not ported yet (ROADMAP.md, Queue 1 item "
+                "12)")
+
+    def _build_refine(self, efn: EnergyFn, minpar: MinimizeParams, cap):
+        """refine_structure (main.cpp:131-173): up to 5 slope escalations of
+        the general-path BFGS, on a batch of one pose."""
+
+        def refine(lig_d, rec_d, conf: Conf, box: Box, dof_mask=None):
+            def within(c: Conf):
+                coords = fk.fk_coords(lig_d, c, efn.max_layers)
+                margin = 0.0001
+                ok = (coords >= box.lo - margin) & (coords <= box.hi + margin)
+                ok = ok | ~lig_d.heavy_mask[:, None]
+                return ok.all(-1).all(-1)                      # (B,)
+
+            b = conf.position.shape[0]
+            dev = conf.position.device
+            e = torch.full((b,), MAX_FL, dtype=torch.float32, device=dev)
+            done = torch.zeros(b, dtype=torch.bool, device=dev)
+            for i in range(5):
+                if bool(done.all()):
+                    break
+                slope = 10.0 ** (i + 1.0)
+
+                def f(c):
+                    return efn.eval_deriv(lig_d, rec_d, c, box, slope, cap)
+
+                def fv(c):
+                    with torch.no_grad():
+                        return efn.eval_energy(lig_d, rec_d, c, box, slope,
+                                               cap)
+
+                res = bfgs(f, conf, minpar, dof_mask, f_val=fv)
+                new_done = within(res.x)
+                conf = Conf(*[torch.where(done[:, None], old, new)
+                              for old, new in zip(conf, res.x)])
+                e = torch.where(done, e, res.f0)
+                done = done | new_done
+            e = torch.where(done, e, torch.full_like(e, MAX_FL))
+            return conf, e
+
+        return refine
+
+    def minimize(self, rec: Receptor, lig: LigandStruct,
+                 center=None, size=None) -> PoseResult:
+        """--minimize / --local_only refinement from the input pose
+        (main.cpp:271-311), through the general path's BFGS (ops/bfgs.py)
+        over the autograd energy.  Both modes derive the box from the
+        movable atoms (main.cpp:1465-1478); they differ in minimizer
+        defaults: --minimize converges (10000 accurate-line-search iters),
+        plain --local_only uses the fast line search and the (25+natoms)/3
+        heuristic (settings.local_only)."""
+        s = self.settings
+        self._general_eligible(lig)
+        if self.cnn is not None and s.cnn_scoring in (
+                "refinement", "metrorefine", "all"):
+            raise NotImplementedError(
+                f"cnn_scoring={s.cnn_scoring!r}: CNN-gradient refinement is "
+                f"not ported yet (ROADMAP.md, Queue 1 item 13)")
+        if center is None:
+            # movable_atoms_box with autobox_add margin (main.cpp:1465-1478)
+            lo = lig.orig_coords.min(axis=0) - s.autobox_add
+            hi = lig.orig_coords.max(axis=0) + s.autobox_add
+            center, size = (lo + hi) / 2, hi - lo
+        dev = self.device
+        lig_d, rec_d, box, max_layers = self._prepare(rec, lig, center, size)
+        efn = make_energy_fn(self.sf, max_layers)
+        t = lig.num_torsions
+        tp = lig_d.num_torsion_slots
+        conf0 = Conf(*[x[None] for x in initial_conf(lig, tp, device=dev)])
+        ar = torch.arange(6 + tp, device=dev)
+        dof_mask = (ar < 6 + t) & (ar >= (0 if lig.has_rigid_dof else 6))
+        cap = [float(s.forcecap)] * 3
+        if s.local_only:
+            iters = (s.minimize_iters if s.minimize_iters > 0
+                     else _minimize_iters_heuristic(lig, s))
+            ls_type = "accurate" if s.accurate_line_search else "fast"
+        else:
+            iters = s.minimize_iters if s.minimize_iters > 0 else 10000
+            ls_type = "accurate"
+        minpar = MinimizeParams(maxiters=min(iters, 10000), type=ls_type,
+                                early_term=s.minimize_early_term)
+        refine = self._build_refine(efn, minpar, cap)
+        conf, _e = refine(lig_d, rec_d, conf0, box, dof_mask)
+        with torch.no_grad():
+            big = Box(lo=torch.full((3,), -1e8, device=dev),
+                      hi=torch.full((3,), 1e8, device=dev))
+            inter, intra = exact_split(efn, lig_d, rec_d, conf, big, 0.0, cap)
+            coords = fk.fk_coords(lig_d, conf, max_layers)[0]
+        coords = coords.cpu().numpy()[:lig.num_atoms]
+        e = float(self._conf_independent(lig, float(inter[0])))
+        heavy = lig_d.heavy_mask.cpu().numpy()[:lig.num_atoms]
+        rmsd = float(np.sqrt(((coords[heavy] - lig.orig_coords[heavy]) ** 2)
+                             .sum(axis=1).mean()))
+        lo_b, hi_b = box.lo.cpu().numpy(), box.hi.cpu().numpy()
+        within = bool(np.all((coords[heavy] >= lo_b - 1e-4)
+                             & (coords[heavy] <= hi_b + 1e-4)))
+        cnnscore = cnnaff = cnnvar = 0.0
+        if self._has_cnn:
+            cnnscore, cnnaff, cnnvar = self.cnn.score_pose(rec, lig, coords)
+        return PoseResult(
+            energy=e, intramol=float(intra[0]), cnnscore=cnnscore,
+            cnnaffinity=cnnaff, cnnvariance=cnnvar, coords=coords,
+            conf_position=conf.position[0].cpu().numpy(),
+            conf_orientation=conf.orientation[0].cpu().numpy(),
+            conf_torsions=conf.torsions[0].cpu().numpy()[:t],
+            rmsd=rmsd, within_box=within)
+
+    def minimize_trajectory(self, rec: Receptor, lig: LigandStruct,
+                            center=None, size=None):
+        """--outputmin N: frames of the minimization trajectory."""
+        raise NotImplementedError(
+            "the minimization trajectory (--outputmin) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 12)")
+
+    # -- randomize only -------------------------------------------------------
+
+    def randomize(self, rec: Receptor, lig: LigandStruct, center, size,
+                  seed: int = 0, attempts: int = 100,
+                  generator: Optional[torch.Generator] = None) -> PoseResult:
+        """--randomize_only (main.cpp:100-129): of `attempts` random confs
+        (position in the box, random orientation and torsions) the one with
+        the least pairwise clash penalty.  Draws come from `generator`, a
+        CPU torch.Generator; without one, from a generator seeded with
+        `seed`."""
+        self._general_eligible(lig)
+        dev = self.device
+        lig_d, _rec_d, box, max_layers = self._prepare(rec, lig, center, size)
+        tp = lig_d.num_torsion_slots
+        if generator is None:
+            generator = torch.Generator(device="cpu")
+            generator.manual_seed(int(seed))
+        pos, quat, tors = mc.randomize_conf(attempts, box.lo.cpu(),
+                                            box.hi.cpu(), tp, generator,
+                                            device=dev)
+        confs = Conf(pos, quat, tors)
+        pens = self.clash_penalty(lig_d, confs, max_layers)
+        best = int(torch.argmin(pens))
+        conf = Conf(*[x[best] for x in confs])
+        with torch.no_grad():
+            coords = fk.fk_coords(lig_d, conf, max_layers)
+        coords = coords.cpu().numpy()[:lig.num_atoms]
+        return PoseResult(
+            energy=float(pens[best]), intramol=0.0, cnnscore=-1.0,
+            cnnaffinity=0.0, cnnvariance=0.0, coords=coords,
+            conf_position=conf.position.cpu().numpy(),
+            conf_orientation=conf.orientation.cpu().numpy(),
+            conf_torsions=conf.torsions.cpu().numpy()[:lig.num_torsions])
+
+    def clash_penalty(self, lig_d: LigandData, confs: Conf, max_layers: int):
+        """model.cpp:1173-1201 over a batch of confs: per intra-ligand pair
+        1 - (r/cov_r)^2/4, zero beyond twice the covalent distance."""
+        cov = torch.as_tensor(
+            np.asarray(self.sf.table.covalent_radius, np.float32),
+            device=lig_d.types.device)[lig_d.types]
+        with torch.no_grad():
+            coords = fk.fk_coords(lig_d, confs, max_layers)
+            ca = coords[..., lig_d.pair_a, :]
+            cb = coords[..., lig_d.pair_b, :]
+            r = torch.sqrt(torch.clamp(torch.sum((ca - cb) ** 2, dim=-1),
+                                       min=1e-12))
+            cr = cov[lig_d.pair_a] + cov[lig_d.pair_b]
+            x = r / torch.clamp(cr, min=1e-6)
+            pen = torch.where(x > 2.0, 0.0, 1.0 - x * x / 4.0)
+            return torch.sum(torch.where(lig_d.pair_mask, pen, 0.0), dim=-1)
+
     # -- full docking ---------------------------------------------------------
 
     def dock(self, rec: Receptor, lig: LigandStruct, center, size,
@@ -334,7 +566,8 @@ class DockingEngine:
             refine_subs -= 1
 
         common = dict(num_trials=s.fused_ls_trials,
-                      ls_factor=s.fused_ls_factor, async_ls=s.fused_async_ls)
+                      ls_factor=s.fused_ls_factor, async_ls=s.fused_async_ls,
+                      done_frac=s.fused_done_frac)
         fused_ref = fd.FusedBfgs(self.sf, pack, miniters, want_metro=True,
                                  **common)
         fused_out = fd.FusedBfgs(self.sf, pack_out, miniters,
@@ -373,6 +606,11 @@ class DockingEngine:
                         carry, gen, chunk, fused_ref, pack, scal_h, scal_f,
                         meta, mcpar, m - 1)
                 done += chunk
+                if self.progress is not None:
+                    self.progress(
+                        f"MC {min(done, num_steps)}/{num_steps} steps "
+                        f"({len(ligs)} ligand(s) x {s.exhaustiveness} "
+                        f"chains)")
 
             # merge: per-ligand top num_out over all chains (min_rmsd 2)
             lg = len(ligs)

@@ -57,6 +57,18 @@ def rotvec_to_quaternion(rotation):
     return torch.cat([c[..., None], sinc_half[..., None] * rotation], dim=-1)
 
 
+def quaternion_to_rotvec(q):
+    """Quaternion -> rotation vector in (-pi, pi] (quaternion.cu:46-62)."""
+    c = torch.clamp(q[..., 0], -1.0, 1.0)
+    angle = 2.0 * torch.arccos(c)
+    angle = torch.where(angle > math.pi, angle - 2.0 * math.pi, angle)
+    s = torch.sin(angle / 2.0)
+    safe = torch.abs(s) >= EPSILON_FL
+    scale = torch.where(safe, angle / torch.where(safe, s, 1.0), 0.0)
+    inrange = (c > -1.0) & (c < 1.0)
+    return torch.where(inrange[..., None], scale[..., None] * q[..., 1:], 0.0)
+
+
 def quaternion_increment(q, rotation):
     """q <- normalize(quat(rotation) * q) (quaternion.cu:99-103)."""
     return qnormalize_approx(qmul(rotvec_to_quaternion(rotation), q))

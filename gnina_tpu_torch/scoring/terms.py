@@ -529,6 +529,68 @@ def _parse_atom_type_term(desc: str, table: AtomTypeTable):
     return None
 
 
+def describe_term(t) -> str:
+    """Inverse of parse_term: the reference-format name string of a pair
+    term (the names terms::get_names returns, used as column headers in
+    --atom_terms output; everything.h registration strings)."""
+    from gnina_tpu_torch.constants import smina_type_name
+
+    def g(x):
+        return f"{x:g}"
+
+    if isinstance(t, Gauss):
+        return f"gauss(o={g(t.offset)},_w={g(t.width)},_c={g(t.cutoff)})"
+    if isinstance(t, Repulsion):
+        return f"repulsion(o={g(t.offset)},_c={g(t.cutoff)})"
+    if isinstance(t, Hydrophobic):
+        return f"hydrophobic(g={g(t.good)},_b={g(t.bad)},_c={g(t.cutoff)})"
+    if isinstance(t, NonHydrophobic):
+        return (f"non_hydrophobic(g={g(t.good)},_b={g(t.bad)},"
+                f"_c={g(t.cutoff)})")
+    if isinstance(t, Vdw):
+        return (f"vdw(i={t.i},_j={t.j},_s={g(t.smoothing)},"
+                f"_^={g(t.cap)},_c={g(t.cutoff)})")
+    if isinstance(t, NonDirHBondLJ):
+        return (f"non_dir_h_bond_lj(o={g(t.offset)},_^={g(t.cap)},"
+                f"_c={g(t.cutoff)})")
+    if isinstance(t, NonDirAntiHBondQuadratic):
+        return (f"non_dir_anti_h_bond_quadratic(o={g(t.offset)},"
+                f"_c={g(t.cutoff)})")
+    if isinstance(t, DonorDonorQuadratic):
+        return f"donor_donor_quadratic(o={g(t.offset)},_c={g(t.cutoff)})"
+    if isinstance(t, AcceptorAcceptorQuadratic):
+        return f"acceptor_acceptor_quadratic(o={g(t.offset)},_c={g(t.cutoff)})"
+    if isinstance(t, NonDirHBond):
+        return (f"non_dir_h_bond(g={g(t.good)},_b={g(t.bad)},"
+                f"_c={g(t.cutoff)})")
+    if isinstance(t, Electrostatic):
+        return f"electrostatic(i={t.power},_^={g(t.cap)},_c={g(t.cutoff)})"
+    if isinstance(t, AD4Solvation):
+        return (f"ad4_solvation(d-sigma={g(t.desolvation_sigma)},"
+                f"_s/q={g(t.solvation_q)},_c={g(t.cutoff)})")
+    if isinstance(t, AtomTypeGaussian):
+        return (f"atom_type_gaussian(t1={smina_type_name(t.t1)},"
+                f"t2={smina_type_name(t.t2)},o={g(t.offset)},"
+                f"_w={g(t.width)},_c={g(t.cutoff)})")
+    if isinstance(t, AtomTypeLinear):
+        return (f"atom_type_linear(t1={smina_type_name(t.t1)},"
+                f"t2={smina_type_name(t.t2)},g={g(t.good)},"
+                f"_b={g(t.bad)},_c={g(t.cutoff)})")
+    if isinstance(t, AtomTypeQuadratic):
+        return (f"atom_type_quadratic(t1={smina_type_name(t.t1)},"
+                f"t2={smina_type_name(t.t2)},o={g(t.offset)},"
+                f"_c={g(t.cutoff)})")
+    if isinstance(t, AtomTypeInversePower):
+        return (f"atom_type_inverse_power(t1={smina_type_name(t.t1)},"
+                f"t2={smina_type_name(t.t2)},i={t.power},"
+                f"_^={g(t.cap)},_c={g(t.cutoff)})")
+    if isinstance(t, AtomTypeLennardJones):
+        return (f"atom_type_lennard_jones(t1={smina_type_name(t.t1)},"
+                f"t2={smina_type_name(t.t2)},o={g(t.opt_distance)},"
+                f"_^={g(t.cap)},_c={g(t.cutoff)})")
+    return type(t).__name__
+
+
 def parse_term(desc: str, table: Optional[AtomTypeTable] = None):
     """Parse a gnina term-description string into a Term or ConfIndependent.
 
@@ -545,3 +607,34 @@ def parse_term(desc: str, table: Optional[AtomTypeTable] = None):
     if table is None:
         from gnina_tpu_torch.constants import DEFAULT_TABLE as table  # noqa: F811
     return _parse_atom_type_term(desc, table)
+
+
+def available_term_names() -> "list[str]":
+    """--print_terms dump: every registered term creator's default-
+    parameterized name string, in the reference's registration order
+    (everything.h:953-985 term_creators; printed by
+    custom_terms.cpp:90-94 print_available_terms)."""
+
+    def g(x):
+        return f"{float(x):g}"
+
+    pair = [
+        f"electrostatic(i=2,_^={g(100)},_c={g(8)})",
+        f"ad4_solvation(d-sigma={g(3.6)},_s/q={g(0.01097)},_c={g(8)})",
+        f"gauss(o={g(0)},_w={g(0.5)},_c={g(8)})",
+        f"repulsion(o={g(0)},_c={g(8)})",
+        f"hydrophobic(g={g(0.5)},_b={g(1.5)},_c={g(8)})",
+        f"non_hydrophobic(g={g(0.5)},_b={g(1.5)},_c={g(8)})",
+        f"vdw(i=6,_j=12,_s={g(1)},_^={g(100)},_c={g(8)})",
+        f"non_dir_h_bond_lj(o={g(-0.7)},_^={g(100)},_c={g(8)})",
+        f"non_dir_anti_h_bond_quadratic(o={g(0)},_c={g(8)})",
+        f"non_dir_h_bond(g={g(-0.7)},_b={g(0)},_c={g(8)})",
+        f"acceptor_acceptor_quadratic(o={g(0)},_c={g(8)})",
+        f"donor_donor_quadratic(o={g(0)},_c={g(8)})",
+        f"atom_type_gaussian(t1=,t2=,o={g(0)},_w={g(0)},_c={g(8)})",
+        f"atom_type_linear(t1=,t2=,g={g(0)},_b={g(0)},_c={g(8)})",
+        f"atom_type_quadratic(t1=,t2=,o={g(0)},_c={g(8)})",
+        f"atom_type_inverse_power(t1=,t2=,i=0,_^={g(100)},_c={g(8)})",
+        f"atom_type_lennard_jones(t1=,t2=,o={g(0)},_^={g(100)},_c={g(8)})",
+    ]
+    return pair + list(_CONF_INDEP)

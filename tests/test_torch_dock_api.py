@@ -227,7 +227,8 @@ _PORTED = {"cnn_rescore": dict(cnn_scoring="rescore"),
            "cnn_sort_affinity": dict(sort_order="CNNaffinity"),
            "lockstep_mc": dict(fused_async_mc=False),
            "async_ls": dict(fused_async_ls=True),
-           "warm_ls": dict(fused_warm_ls=True)}
+           "warm_ls": dict(fused_warm_ls=True),
+           "done_frac": dict(fused_done_frac=0.9)}
 
 
 @pytest.mark.parametrize("case", [
@@ -239,8 +240,8 @@ def test_jobs_outside_the_fused_route_raise(system, case):
     from score_only, instead of running with made-up CNN fields or
     another route's settings.  The cases since ported (the CNN rescore and
     sort orders, which without a scorer mean no CNN as in the JAX engine;
-    lockstep MC; the async and warm line searches) no longer raise: they
-    dock and score."""
+    lockstep MC; the async and warm line searches; the done_frac group
+    stop) no longer raise: they dock and score."""
     settings = dict(SETTINGS)
     sf = None
     lig = system["lig"]
@@ -272,9 +273,6 @@ def test_jobs_outside_the_fused_route_raise(system, case):
         lig = dataclasses.replace(lig, num_lig_atoms=lig.num_atoms - 2)
     elif case == "covalent":
         lig = dataclasses.replace(lig, has_rigid_dof=False)
-    elif case == "done_frac":
-        settings["fused_done_frac"] = 0.9
-        match = "Queue 2"
     eng = DockingEngine(DockSettings(**settings), sf=sf, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         eng.dock_batch(system["rec"], [lig], system["center"],

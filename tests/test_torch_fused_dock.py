@@ -542,7 +542,7 @@ def test_lockstep_mc_plain_window_is_its_step_replay(system, async_ls):
     rigid, tors, ecur, uni, out = _lockstep(system, confs, 33, maxiters=3,
                                             async_ls=async_ls)
     _, _, stats, coords, srig, stor, sstat, _ = out
-    e, pos, trials, acc, c_rep = fd.replay_lockstep_window_plain(
+    e, pos, trials, acc, c_rep, gi = fd.replay_lockstep_window_plain(
         system["terms"], rigid, tors, scal(system), system["pack"], ecur,
         (srig, stor, sstat), uni, 3, TRIALS, async_ls=async_ls)
     assert torch.equal(e, sstat[..., 0])
@@ -550,6 +550,7 @@ def test_lockstep_mc_plain_window_is_its_step_replay(system, async_ls):
     assert torch.equal(trials, sstat[..., 2])
     assert torch.equal(acc, sstat[..., 1] > 0.5)
     assert torch.equal(c_rep, coords)
+    assert torch.equal(gi.sum(1), stats[:, 5]) and not bool(gi.any())
     if async_ls:
         base = _lockstep(system, confs, 33, maxiters=3)[4]
         for i, (x, y) in enumerate(zip(out[:7], base[:7])):

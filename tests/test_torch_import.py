@@ -27,7 +27,10 @@ _MODULES = ["gnina_tpu_torch", "gnina_tpu_torch.docking",
             "gnina_tpu_torch.ops.voxelize", "gnina_tpu_torch.models.typer",
             "gnina_tpu_torch.models.runtime",
             "gnina_tpu_torch.models.registry",
-            "gnina_tpu_torch.models.scorer"]
+            "gnina_tpu_torch.models.scorer", "gnina_tpu_torch.cli",
+            "gnina_tpu_torch.probes", "gnina_tpu_torch.ops.bfgs",
+            "gnina_tpu_torch.ops._cuda", "gnina_tpu_torch.output",
+            "gnina_tpu_torch.scoring.atom_terms"]
 
 
 @pytest.mark.parametrize("module", _MODULES)
@@ -89,11 +92,37 @@ def test_default_device_without_card_raises():
         DockingEngine(DockSettings(cnn_scoring="none"))
 
 
+def test_entry_points_without_card_raise(tmp_path):
+    """The command line and the probe script run on the card unless told
+    otherwise: without one they raise, they do not fall back to the CPU."""
+    import torch
+
+    from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch import cli, probes
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rec = tmp_path / "rec.pdb"
+    rec.write_text(fx.receptor_pdb_text(fx.ligand_center(fx.ligand()),
+                                        seed=1, cube=12.0))
+    argv = ["-r", str(rec), "-l", fx.LIGAND_SDF, "--score_only",
+            "--cnn_scoring", "none", "-q"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv, device=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv + ["--device", "0"])       # gnina's GPU number
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probes.main([])
+
+
 @pytest.mark.parametrize("builder", [
     "build_pack", "scal_vector", "pad_ligand", "pad_receptor",
     "initial_conf", "empty_container", "randomize_conf", "mc_init",
     "random_orientation", "draw_mutation", "load_model", "SpecModule",
-    "CNNScorer", "cnn_model_from_numpy"])
+    "CNNScorer", "cnn_model_from_numpy", "per_atom_term_values",
+    "atom_terms_table"])
 def test_building_blocks_default_to_the_card(builder):
     """The public building blocks take device=None as the card too: with no
     card they raise instead of building CPU tensors."""
@@ -105,6 +134,7 @@ def test_building_blocks_default_to_the_card(builder):
     from gnina_tpu_torch.models import registry, runtime, scorer
     from gnina_tpu_torch.ops import fused_dock as fd
     from gnina_tpu_torch.ops import mc, quat
+    from gnina_tpu_torch.scoring import atom_terms
     from gnina_tpu_torch.scoring.builtin import get_scoring_function
     from gnina_tpu_torch.types import initial_conf, pad_ligand, pad_receptor
 
@@ -134,6 +164,12 @@ def test_building_blocks_default_to_the_card(builder):
         "CNNScorer": lambda: scorer.CNNScorer(["fast"]),
         "cnn_model_from_numpy": lambda: convert.cnn_model_from_numpy(
             {"input": "x", "ops": [], "output": ["x"]}, {}),
+        "per_atom_term_values": lambda: atom_terms.per_atom_term_values(
+            get_scoring_function("vina"), lig.types, lig.orig_coords,
+            lig.charges, lig.types, lig.orig_coords, lig.charges),
+        "atom_terms_table": lambda: atom_terms.atom_terms_table(
+            get_scoring_function("vina"), lig,
+            fx.receptor(fx.ligand_center(lig), 1, cube=12.0)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[builder]()

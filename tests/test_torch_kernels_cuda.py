@@ -210,7 +210,7 @@ def test_lockstep_mc_kernel_on_supplied_uniforms(system, async_ls):
                                 async_ls=async_ls, uniforms=uni)
     torch.cuda.synchronize()
     assert fd.lockstep_mc_window.launches == before + 1
-    e, pos, trials, acc, coords = fd.replay_lockstep_window_plain(
+    e, pos, trials, acc, coords, _ = fd.replay_lockstep_window_plain(
         system["terms"], r, t, system["scal"], system["pack"], ecur, got[4:],
         uni, maxit, async_ls=async_ls)
     same = trials == got[6][..., 2]
@@ -253,3 +253,199 @@ def test_wrappers_check_their_inputs(system):
     with pytest.raises(TypeError, match="dtype"):
         fd.eval_fg(system["terms"], r.double(), t, system["scal"],
                    system["pack"])
+
+
+# ---------------------------------------------------------------- K8 ----
+
+@pytest.mark.parametrize("async_ls", [False, True])
+@pytest.mark.parametrize("done_frac", [0.5, 0.9])
+def test_group_stop_kernel(system, async_ls, done_frac):
+    """K8 in k_bfgs vs the plain version on 32 lanes (one group with 96
+    counted padding lanes), half the lanes from minima: the group's
+    iteration count equal, one count for the whole group, energies within
+    the K2 three-iteration bound on lanes with the same trial counts (at
+    least 30 of 32), the barrier words' done counts by iteration the
+    plain version's, two launches bit-equal, 1.0 bit-equal to the uncoupled
+    launch."""
+    r, t = _poses(system, "perturbed", 8)
+    rm, tm = fd.bfgs_minimize(system["terms"], r, t, system["scal"],
+                              system["pack"], 30)[:2]
+    half = LANES // 2
+    r = torch.cat([rm[:half], r[half:]]).contiguous()
+    t = torch.cat([tm[:half], t[half:]]).contiguous()
+    args = (system["terms"], r, t, system["scal"], system["pack"], 3)
+    before = fd.bfgs_minimize.launches_coupled
+    kv, pv = [], []
+    got = fd.bfgs_minimize(*args, async_ls=async_ls, done_frac=done_frac,
+                           votes=kv)
+    again = fd.bfgs_minimize(*args, async_ls=async_ls, done_frac=done_frac)
+    torch.cuda.synchronize()
+    assert fd.bfgs_minimize.launches_coupled == before + 2
+    ref = fd.bfgs_minimize_plain(*args, async_ls=async_ls,
+                                 done_frac=done_frac, votes=pv)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    gi = got[2][:, 5]
+    assert bool((gi == gi[0]).all()) and torch.equal(gi, ref[2][:, 5])
+    # the barrier words: the group met at the iterations it ran and at no
+    # other, with the plain version's done counts but for lanes whose
+    # Armijo test fell the other way (at most 2)
+    assert kv[0].shape == pv[0].shape and kv[0].shape[0] == 1
+    assert torch.equal(kv[0] >= 0, pv[0] >= 0)
+    assert int((kv[0] >= 0).sum()) == int(gi[0])
+    assert int((kv[0] - pv[0]).abs().max()) <= 2
+    same = (got[2][:, 2] == ref[2][:, 2]) & (got[2][:, 4] == ref[2][:, 4])
+    assert int(same.sum()) >= LANES - 2
+    _close(got[2][same, 0], ref[2][same, 0], 1e-2, 5e-2)
+    free = fd.bfgs_minimize(*args, async_ls=async_ls)
+    one = fd.bfgs_minimize(*args, async_ls=async_ls, done_frac=1.0)
+    assert all(torch.equal(a, b) for a, b in zip(free, one))
+    assert bool((free[2][:, 5] == 0).all())
+
+
+def test_group_stop_in_lockstep_mc_kernel(system):
+    """K8 in k_lockstep_mc (S=4, one iteration a step, supplied uniforms):
+    rows against the plain steps at K5's bounds, one iteration count for
+    the group equal to the plain steps' sum, two launches bit-equal; and a
+    window whose stop comes (three iterations a step cut to one)."""
+    r, t = _poses(system, "perturbed", 9)
+    rng = np.random.default_rng(10)
+    uni = torch.as_tensor(rng.random((4, fd.N_DRAWS, LANES),
+                                     dtype=np.float32), device=system["dev"])
+    ecur = torch.full((LANES,), 3.0e38, device=system["dev"])
+    args = (system["terms"], r, t, system["scal"], system["pack"], ecur, 4, 1)
+    got = fd.lockstep_mc_window(*args, uniforms=uni, done_frac=0.9)
+    again = fd.lockstep_mc_window(*args, uniforms=uni, done_frac=0.9)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert bool((got[2][:, 5] == 4).all())
+    e_rep, _, tr_rep, acc_rep, _, gi_rep = fd.replay_lockstep_window_plain(
+        system["terms"], r, t, system["scal"], system["pack"], ecur, got[4:],
+        uni, 1, done_frac=0.9)
+    same = tr_rep == got[6][..., 2]
+    assert int((~same).sum()) <= 2
+    _close(got[6][..., 0][same], e_rep[same], 1e-2, 5e-2)
+    assert torch.equal(got[6][..., 1] > 0.5, acc_rep)
+    assert torch.equal(gi_rep.sum(1), got[2][:, 5])
+    # three iterations a step at done_frac 0.75: the target 96 is met by the
+    # 96 counted padding lanes alone, so every step's BFGS stops after one
+    # iteration where the uncoupled window runs up to three
+    args3 = args[:-1] + (3,)
+    cut = fd.lockstep_mc_window(*args3, uniforms=uni, done_frac=0.75)
+    free = fd.lockstep_mc_window(*args3, uniforms=uni)
+    torch.cuda.synchronize()
+    assert bool((cut[2][:, 5] == 4).all()) and bool((cut[2][:, 3] <= 4).all())
+    assert float(free[2][:, 3].sum()) > float(cut[2][:, 3].sum())
+    e_rep, _, tr_rep, acc_rep, _, gi_rep = fd.replay_lockstep_window_plain(
+        system["terms"], r, t, system["scal"], system["pack"], ecur, cut[4:],
+        uni, 3, done_frac=0.75)
+    assert torch.equal(gi_rep.sum(1), cut[2][:, 5])
+    same = tr_rep == cut[6][..., 2]
+    assert int((~same).sum()) <= 2
+    _close(cut[6][..., 0][same], e_rep[same], 1e-2, 5e-2)
+
+
+# ------------------------------------------------------------- K9-K11 ----
+
+def test_probe_kernels(card):
+    """K9-K11 vs their plain versions at a small size: each checksum within
+    2e-5 of the sum of the terms' magnitudes (2e-2 for bfloat16 pair
+    arithmetic); each call's two launches (the probe's kernel and the sum
+    of its partial sums) counted; two calls equal."""
+    from gnina_tpu_torch import probes
+
+    lanes, n, k, reps = 64, 4, 256, 3
+    x = probes.make_inputs(3, lanes, n, k, card)
+    mag = reps * float(probes.pair_energies(
+        x["lig"], x["ligp"], x["rec"], x["recp"]).abs().sum())
+    pa = (x["lig"], x["ligp"], x["rec"], x["recp"], reps)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        before = (probes.probe_pairs.launches, probes.probe_pairs.calls)
+        got = float(probes.probe_pairs(*pa, dtype=dtype))
+        assert (probes.probe_pairs.launches, probes.probe_pairs.calls) == (
+            before[0] + probes.LAUNCHES_PER_CALL, before[1] + 1)
+        ref = float(probes.probe_pairs_plain(*pa, dtype=dtype))
+        assert abs(got - ref) <= tol * mag
+        assert got == float(probes.probe_pairs(*pa, dtype=dtype))
+    got = float(probes.probe_gather_loop(x["idx"], x["cells"], x["w"], reps))
+    ref = float(probes.probe_gather_loop_plain(x["idx"], x["cells"], x["w"],
+                                               reps))
+    mag = reps * float((x["cells"][x["idx"].long(), :8] * x["w"]).abs().sum())
+    assert abs(got - ref) <= 2e-5 * mag
+    got = float(probes.probe_mxu(x["tgt"], x["g"], reps))
+    ref = float(probes.probe_mxu_plain(x["tgt"], x["g"], reps))
+    mag = reps * float(x["g"].float()[x["tgt"][:, 0].long()].abs().sum())
+    assert abs(got - ref) <= 2e-5 * mag
+    assert probes.probe_gather_loop.launches >= 1
+    assert probes.probe_mxu.launches >= 1
+    with pytest.raises(ValueError):
+        probes.probe_mxu(x["tgt"][:40].contiguous(), x["g"], reps)
+
+
+# ------------------------------------------------------------- the CLI ----
+
+def test_cli_runs_on_the_card_by_default(card, tmp_path):
+    """python -m gnina_tpu_torch without --device: score_only goes through
+    K1 on the card and agrees with --device cpu within 1e-3 kcal/mol."""
+    import re
+
+    from gnina_tpu_torch import cli
+
+    lig = fx.ligand()
+    rec = tmp_path / "rec.pdb"
+    rec.write_text(fx.receptor_pdb_text(fx.ligand_center(lig), seed=4,
+                                        cube=22.0))
+    with open(fx.LIGAND_SDF) as f:
+        one = tmp_path / "one.sdf"
+        one.write_text(f.read().split("$$$$\n")[0] + "$$$$\n")
+    argv = ["-r", str(rec), "-l", str(one), "--score_only", "--cnn_scoring",
+            "none", "-q"]
+    before = fd.eval_fg.launches
+    assert cli.main(argv + ["--log", str(tmp_path / "gpu.log")]) == 0
+    assert fd.eval_fg.launches == before + 1
+    assert cli.main(argv + ["--device", "cpu", "--log",
+                            str(tmp_path / "cpu.log")]) == 0
+    aff = [float(re.search(r"Affinity: (-?[\d.]+)",
+                           (tmp_path / f).read_text()).group(1))
+           for f in ("gpu.log", "cpu.log")]
+    assert abs(aff[0] - aff[1]) <= 1e-3
+
+
+def test_term_values_and_atom_terms_on_the_card(card, monkeypatch):
+    """--score_only's "Term values" row and the --atom_terms table are
+    evaluated on the engine's device: every tensor a term sees lies on the
+    card, and the values equal the CPU engine's within 1e-4 relative (the
+    CPU values are held to the JAX package in test_torch_minimize.py)."""
+    from gnina_tpu_torch.docking import DockingEngine, DockSettings
+    from gnina_tpu_torch.scoring import atom_terms, terms
+
+    rec, lig, _, _ = fx.system(seed=3, box=16.0, cube=30.0)
+    seen = []
+    real = terms.Gauss.eval
+
+    def spy(self, pa, pb, r, qa=None, qb=None):
+        seen.extend([r.device.type, pa["xs_radius"].device.type,
+                     pb["xs_radius"].device.type])
+        return real(self, pa, pb, r, qa=qa, qb=qb)
+
+    monkeypatch.setattr(terms.Gauss, "eval", spy)
+    st = DockSettings(cnn_scoring="none")
+    on_card = DockingEngine(st).term_values(rec, lig)      # device=None
+    assert seen and set(seen) == {"cuda"}
+    del seen[:]
+    on_cpu = DockingEngine(st, device="cpu").term_values(rec, lig)
+    assert set(seen) == {"cpu"}
+    assert len(on_card) == 5 and any(abs(v) > 0.1 for v in on_cpu)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4)
+    sf = get_scoring_function("vina")
+    del seen[:]
+    t_card = atom_terms.atom_terms_table(sf, lig, rec)      # device=None
+    assert set(seen) == {"cuda"}
+    t_cpu = atom_terms.atom_terms_table(sf, lig, rec, device="cpu")
+    rows = [(a.split(), b.split()) for a, b in
+            zip(t_card.splitlines()[1:-1], t_cpu.splitlines()[1:-1])]
+    assert len(rows) == lig.num_atoms
+    for a, b in rows:
+        assert a[:5] == b[:5]
+        np.testing.assert_allclose([float(v) for v in a[5:]],
+                                   [float(v) for v in b[5:]], rtol=1e-3,
+                                   atol=1e-5)
