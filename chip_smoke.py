@@ -9,7 +9,9 @@ modes (K1 eval_fg, K2 bfgs_minimize and its async_ls mode K4, K3
 async_mc_window and its warm_ls mode K6, K5 lockstep_mc_window, K7's
 gradient layout over K1, K8 the done_frac group stop of K2/K4/K5, and the
 rate probes K9 probe_pairs, K10 probe_gather_loop, K11 probe_mxu) against
-its plain PyTorch version at the main path's shapes, and docks 16 copies
+its plain PyTorch version at the main path's shapes (K1 and one K3 window
+also on a receptor above the shared-memory budget, which the kernels
+stream through tiles: phase [4f]), and docks 16 copies
 of the minout.sdf ligand x exhaustiveness 8 (128 chains) through
 DockingEngine.dock_batch on the card
 under each search setting that selects one of them: the default in-kernel
@@ -574,6 +576,114 @@ def phase_k8(S, k2_starts, errs):
           "rtol 1e-2, atol 5e-2; Metropolis decisions recomputed, two "
           "launches bit-equal, one count per group. " + "; ".join(parts),
           flush=True)
+
+
+def phase_streamed(S, errs):
+    """K1 and one K3 window on a receptor above the shared-memory budget: a
+    synthetic receptor from --seed in a 34 A box (a 60 A cube, about 2.9x
+    the main path's atoms after pruning), which the kernels stream through
+    shared-memory tiles.  K1 at the rescore's L=800 against its plain
+    version (the bounds of phase 2); K3 at L=128 on supplied uniforms, S=4
+    and one iteration, against the plain window and its plain steps (the
+    rules of phase 4), then a full window (S=128, tick budget 16) on Philox,
+    timed beside the main path's."""
+    import torch
+
+    from gnina_tpu_torch.chem.ingest import box_from_center_size
+    from gnina_tpu_torch.scoring.builtin import get_scoring_function
+
+    fd, fx, terms, dev, rng = S.fd, S.fx, S.terms, S.dev, S.rng
+    rec, lig, center, size = fx.system(seed=S.seed, box=34.0, cube=60.0)
+    sf = get_scoring_function("vina")
+    pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                        margin=sf.cutoff)
+    kr = len(pruned.types)
+    lo, hi = box_from_center_size(center, size)
+    pack = fd.build_pack([lig] * LIGANDS, pruned.coords, pruned.types,
+                         np.ones(kr, np.float32), EXHAUSTIVENESS, sf.table,
+                         m_pad=S.m, device=dev)
+    n, m_, _, _, lanes = pack.dims
+    plan = fd.smem_plan(n, m_, 6 + m_ - 1, kr)
+    check(not plan.resident, f"K={kr}: the receptor did not stream")
+    pack_out = pack.with_lanes(S.pack_out.lane_lig)
+    nl_out = S.out_lanes
+    scal_r = fd.scal_vector(1000.0, 1000.0, 1e3, 1000.0, lo, hi, device=dev)
+    scal_h = fd.scal_vector(10.0, 10.0, 1e3, 1000.0, lo, hi, 2.0, 1.2,
+                            device=dev)
+    e_err = g_err = c_err = 0.0
+    for kind in ("random", "perturbed"):
+        r, t = fx.packed_poses(rng, nl_out, lo, hi, lig, S.m, dev, kind)
+        got = fd.eval_fg(terms, r, t, scal_r, pack_out)
+        torch.cuda.synchronize()
+        ref = fd.eval_fg_plain(terms, r, t, scal_r, pack_out)
+        for i, nm in ((0, "e"), (1, "e_metro")):
+            check(close(got[i], ref[i], 2e-4, 2e-3), f"K1 streamed {nm} "
+                  f"({kind}) off by {max_err(got[i], ref[i])}")
+        e_err = max(e_err, max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+        if kind == "perturbed":
+            g_err = max_err(got[2], ref[2])
+            check(close(got[2], ref[2], 1e-3, 1e-2),
+                  f"K1 streamed gradient off by {g_err}")
+        c_err = max(c_err, max_err(got[3], ref[3]))
+        check(c_err <= 1e-4, f"K1 streamed coords off by {c_err} A")
+        del ref
+    errs["eval_fg/streamed"] = e_err
+
+    ecur = torch.full((lanes,), 3.0e38, device=dev)
+    s_steps, maxit = 4, 1
+    budget = 1 + maxit * fd.NUM_TRIALS
+    r, t = fx.packed_poses(rng, lanes, lo, hi, lig, S.m, dev, "perturbed")
+    uni = torch.as_tensor(rng.random((s_steps * budget, fd.N_DRAWS, lanes),
+                                     dtype=np.float32), device=dev)
+    got = fd.async_mc_window(terms, r, t, scal_h, pack, ecur, s_steps,
+                             budget, maxit, uniforms=uni)
+    torch.cuda.synchronize()
+    ref = fd.async_mc_window_plain(terms, r, t, scal_h, pack, ecur, s_steps,
+                                   budget, maxit, uniforms=uni)
+    gs, rs = got[6], ref[6]
+    check(torch.equal(gs[..., 2], rs[..., 2]), "K3 streamed completion flags")
+    e_rep, p_rep, acc_rep, ticks = fd.replay_mc_window_plain(
+        terms, r, t, scal_h, pack, ecur, got[4:], uni)
+    same = ticks == got[2][:, 2].long()
+    flips = int((~same).sum())
+    check(flips <= 0.01 * lanes, f"K3 streamed Armijo flips on {flips} lanes")
+    row0 = max_err(gs[same, 0, 0], rs[same, 0, 0])
+    check(close(gs[same, 0, 0], rs[same, 0, 0], 5e-4, 5e-3),
+          f"K3 streamed first-step energies off the plain window by {row0}")
+    k3_err = max_err(gs[same][..., 0], e_rep[same])
+    check(close(gs[same][..., 0], e_rep[same], 5e-4, 5e-3),
+          f"K3 streamed stream energies off the plain steps by {k3_err}")
+    check(max_err(got[4][same][..., :3], p_rep[same]) <= 2e-3,
+          "K3 streamed stream positions off the plain steps")
+    check(torch.equal(gs[same][..., 1] > 0.5, acc_rep[same]),
+          "K3 streamed Metropolis decisions")
+    errs["async_mc_window/streamed"] = k3_err
+
+    r, t = fx.packed_poses(rng, lanes, lo, hi, lig, S.m, dev, "random")
+    run = lambda: fd.async_mc_window(terms, r, t, scal_h, pack, ecur, 128, 16,
+                                     S.miniters, seed=S.seed + 2)
+    full = run()
+    torch.cuda.synchronize()
+    flags = full[6][..., 2]
+    check(bool(((flags == 0) | (flags == 1)).all())
+          and torch.equal(flags.sum(1), full[2][:, 4])
+          and bool(torch.isfinite(full[6][..., 0][flags > 0]).all()),
+          "K3 streamed full window")
+    ms = timed(run, 3)
+    frac = in_cutoff_fraction(full[3], pack, pack.lane_lig.long(),
+                              terms.cutoff_sqr)
+    print(f"[4f] receptor above the shared-memory budget: K = {kr} atoms "
+          f"({plan.n_tiles} tiles of {plan.rec_tile}, {plan.nbytes} B of "
+          f"shared memory a block): K1 vs plain at L={nl_out} max |de| "
+          f"{e_err:.2e} (rtol 2e-4, atol 2e-3), |dg| {g_err:.2e} (rtol 1e-3, "
+          f"atol 1e-2), |dx| {c_err:.2e} A (1e-4); K3 (S=4, maxiters 1, "
+          f"supplied uniforms) completion flags equal, max |de| {row0:.2e} on "
+          f"first steps, {k3_err:.2e} over the stream against the plain "
+          f"steps (rtol 5e-4, atol 5e-3), Metropolis decisions recomputed, "
+          f"Armijo flips on {flips} of {lanes} lanes; full window S=128 "
+          f"budget 16: {ms:.3f} ms, {int(flags.sum())} steps completed, "
+          f"{int(full[2][:, 2].sum())} evaluations, in-cutoff pair share "
+          f"{frac:.4f}", flush=True)
 
 
 def phase_probes(S, errs):
@@ -1273,6 +1383,9 @@ def main():
     # ---- 4e. K9-K11: the rate probes ---------------------------------------
     probe_rows = phase_probes(S, errs)
 
+    # ---- 4f. K1 and K3 with the receptor streamed through tiles ------------
+    phase_streamed(S, errs)
+
     # ---- 5. the main path end to end ---------------------------------------
     settings = DockSettings(cnn_scoring="none", num_mc_steps=MC_STEPS,
                             exhaustiveness=EXHAUSTIVENESS)
@@ -1682,7 +1795,7 @@ def main():
                               int(out[2][:, 3].sum()))
         rows.append(dict(name=name, shape=f"L={lanes} S=128 b=16", ms=ms,
                          plain_ms=pms, bound_ms=bms, bound_by=bby,
-                         launches=n_launch, calls=n_launch,
+                         in_cutoff=frac, launches=n_launch, calls=n_launch,
                          replaces=f"gnina_tpu/ops/pallas_dock.py:{line}",
                          max_abs_err=errs[name]))
 
@@ -1753,10 +1866,12 @@ def main():
                if row.get("library_ms") is None else
                f"torch.matmul on the same operands {row['library_ms']:.3f} "
                f"ms")
+        share = (f", in-cutoff pair share {row['in_cutoff']:.4f}"
+                 if "in_cutoff" in row else "")
         print(f"[6] {row['name']} {row['shape']}: {row['ms']:.3f} ms "
               f"(plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f}"
-              f" ms by {row['bound_by']}), {row['launches']} launches in "
-              f"{row['calls']} calls on its path; {lib}", flush=True)
+              f" ms by {row['bound_by']}{share}), {row['launches']} launches "
+              f"in {row['calls']} calls on its path; {lib}", flush=True)
 
     print("[6] one window of 128 steps x 16 ticks from the same starts and "
           "seed: " + "; ".join(

@@ -58,8 +58,21 @@ from gnina_tpu_torch.types import Conf
 NUM_TRIALS = 10   # Armijo halvings (bfgs.h:73-91)
 C0 = 1e-4
 N_DRAWS = 13      # uniforms per MC tick: 12 for mutate, 1 for Metropolis
-BLOCK_THREADS = 256   # threads per pose block in csrc/fused_dock.cu (NT)
+BLOCK_THREADS = 512   # threads per pose block in csrc/fused_dock.cu (NT)
 GROUP = 128           # lanes per done_frac group (the JAX kernel's block, LB)
+
+# Shared memory of a pose block (csrc/fused_dock.cu smem_bytes): two
+# mbarriers, the receptor, the pose state and one pair queue per warp.  The
+# receptor (REC_ROW_BYTES an atom) stays resident for the whole launch up to
+# REC_RESIDENT_BYTES; above, it streams through two tiles of REC_TILE_ATOMS
+# per evaluation.
+SMEM_LIMIT = 232448 - 1024   # the card's per-block maximum, less the
+                             # kernels' static shared memory (terms, scal)
+REC_ROW_BYTES = 32
+REC_RESIDENT_BYTES = 192 * 1024
+REC_TILE_ATOMS = 2048
+QUEUE_CAP = 64               # pair-queue entries per warp (QCAP)
+REC_OFFSET = 128             # bytes before the receptor: the mbarriers
 
 
 # --------------------------------------------------------------------------
@@ -212,6 +225,53 @@ def build_pack(ligs, rec_coords, rec_types, rec_mask, exhaustiveness: int,
                     imask=t(imask), dofmask=t(dofmask), nheavy=t(nheavy),
                     rec=t(rec), lane_lig=t(lane_lig), heavy_idx=heavy_idx,
                     num_layers=ly, max_heavy=int(nheavy.max()))
+
+
+class SmemPlan(NamedTuple):
+    """How a pose block of the fused kernels holds the receptor."""
+
+    rec_tile: int     # receptor atoms a tile (K when resident)
+    resident: bool    # the whole receptor stays in shared memory
+    n_tiles: int      # tiles an evaluation walks (1 when resident)
+    nbytes: int       # dynamic shared memory of the block
+
+
+def state_floats(n: int, m: int, d: int) -> int:
+    """Floats of a pose block's state in shared memory (csrc/fused_dock.cu
+    smem_floats): clamped atoms, pack, frames, atoms, per-warp pair sums,
+    node forces, BFGS, pose states, scalars."""
+    nwarps = BLOCK_THREADS // 32
+    return (n * 4
+            + n * 3 + n * 6 + m * 3 + m * 3 + n * n + d
+            + n + m + m
+            + m + m + m * 4 + m * 3 + m * 3
+            + n * 3 + n * 3
+            + 2 * nwarps * n * 4
+            + m * 3 + m * 3
+            + d * d + 5 * d
+            + 4 * (8 + m)
+            + 32)
+
+
+def smem_plan(n: int, m: int, d: int, k: int) -> SmemPlan:
+    """The shared-memory plan of a pose block for N atom rows, M tree
+    nodes, D DOFs and K receptor atoms: the receptor resident when it takes
+    at most REC_RESIDENT_BYTES and fits beside the state, else two tiles of
+    REC_TILE_ATOMS (halved until they fit).  Raises when not even the
+    smallest tiles fit."""
+    fixed = (REC_OFFSET + 4 * state_floats(n, m, d)
+             + 4 * (BLOCK_THREADS // 32) * QUEUE_CAP)
+    rec = k * REC_ROW_BYTES
+    if rec <= REC_RESIDENT_BYTES and fixed + rec <= SMEM_LIMIT:
+        return SmemPlan(k, True, 1 if k else 0, fixed + rec)
+    tile = REC_TILE_ATOMS
+    while fixed + 2 * tile * REC_ROW_BYTES > SMEM_LIMIT and tile > 256:
+        tile //= 2
+    nbytes = fixed + 2 * tile * REC_ROW_BYTES
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"a pose block needs {nbytes} bytes of shared "
+                         f"memory (N={n}, M={m}); the card has {SMEM_LIMIT}")
+    return SmemPlan(tile, False, -(-k // tile), nbytes)
 
 
 def conf_to_packed(conf: Conf, m: int):
@@ -1170,7 +1230,8 @@ class _PackArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "lc", "ap", "node", "parent", "layer", "relax", "relo", "imask",
         "dofmask", "nheavy", "rec", "lane_lig")]
-        + [(f, ctypes.c_int) for f in ("L", "N", "M", "LY", "K", "D")])
+        + [(f, ctypes.c_int) for f in ("L", "N", "M", "LY", "K", "D",
+                                        "rec_tile")])
 
 
 class _TermArgs(ctypes.Structure):
@@ -1225,9 +1286,6 @@ def _pack_args(pack: DockPack, device) -> _PackArgs:
     n, m, ly, k, lanes = pack.dims
     g = pack.lc.shape[0]
     d = 6 + m - 1
-    if d > BLOCK_THREADS:
-        raise ValueError(f"{m} tree nodes: the kernels take at most "
-                         f"{BLOCK_THREADS - 5}")
     shapes = {"lc": (g, n, 3), "ap": (g, n, 6), "node": (g, n),
               "parent": (g, m), "layer": (g, m), "relax": (g, m, 3),
               "relo": (g, m, 3), "imask": (g, n, n), "dofmask": (g, d),
@@ -1238,6 +1296,7 @@ def _pack_args(pack: DockPack, device) -> _PackArgs:
         _check(t, f"pack.{f}", shape, _PACK_DTYPES[f], device)
         setattr(a, f, t.data_ptr())
     a.L, a.N, a.M, a.LY, a.K, a.D = lanes, n, m, ly, k, d
+    a.rec_tile = smem_plan(n, m, d, k).rec_tile
     return a
 
 

@@ -45,6 +45,9 @@ from gnina_tpu_torch.device import resolve_device
 GATHER_ROWS = 16384   # rows of the gather table (R)
 MXU_KDIM = 896        # depth of the one-hot contraction
 ROW_WIDTH = 128       # width of a table row and of g
+# deepest g K11 takes: a block holds one 64-column half of g in shared
+# memory (kdim x 128 B of the card's 227 KB)
+MXU_KMAX = 1792
 # kernel launches of one probe call (csrc/probes.cu): the probe's kernel,
 # which leaves one partial sum per block, warp or lookup, and k_sum, one
 # block that adds them in a fixed order
@@ -227,12 +230,14 @@ def _launch_mxu(tgt, g, reps):
 
     dev = g.device
     a, kdim = tgt.shape[0], g.shape[0]
-    if a % 64 or kdim % 16:
-        raise ValueError(f"probe_mxu: {a} rows must be a multiple of 64 and "
-                         f"depth {kdim} of 16")
+    if a % 64 or kdim % 16 or not 0 < kdim <= MXU_KMAX or a == 0:
+        raise ValueError(f"probe_mxu: {a} rows must be a positive multiple "
+                         f"of 64 and depth {kdim} a multiple of 16 in (0, "
+                         f"{MXU_KMAX}]")
     _check(tgt, "tgt", (a, 1), torch.int32, dev)
     _check(g, "g", (kdim, ROW_WIDTH), torch.bfloat16, dev)
-    partial = torch.empty(a // 16, dtype=torch.float32, device=dev)
+    # one partial sum per warp: 4 warps per 64 rows and 64-column half
+    partial = torch.empty(a // 8, dtype=torch.float32, device=dev)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     code = _cuda.probes_lib().gt_probe_mxu(
         _p(tgt), _p(g), a, kdim, int(reps), _p(partial), _p(out), _stream())

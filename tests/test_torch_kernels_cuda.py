@@ -116,6 +116,39 @@ def test_async_mc_kernel_on_supplied_uniforms(system):
     assert torch.equal(ticks, got[2][:, 2].long())
 
 
+@pytest.fixture(scope="module")
+def big_system(card):
+    """A receptor above the shared-memory budget: a 34 A box in a 60 A cube
+    keeps about 6,150 atoms after pruning, which stream through tiles."""
+    rec, lig, center, size = fx.system(seed=3, box=34.0, cube=60.0)
+    sf = get_scoring_function("vina")
+    pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                        margin=sf.cutoff)
+    pack = fd.build_pack([lig, lig], pruned.coords, pruned.types,
+                         np.ones(len(pruned.types), np.float32), LANES // 2,
+                         sf.table, m_pad=M, device=card)
+    n, m, _, k, _ = pack.dims
+    plan = fd.smem_plan(n, m, 6 + m - 1, k)
+    assert not plan.resident and plan.n_tiles >= 3
+    lo, hi = box_from_center_size(center, size)
+    scal = fd.scal_vector(10.0, 10.0, 1e3, 1000.0, lo, hi, device=card)
+    return dict(lig=lig, pack=pack, lo=lo, hi=hi, scal=scal,
+                terms=fd.extract_vina_terms(sf), dev=card)
+
+
+@pytest.mark.parametrize("kind", ["random", "perturbed"])
+def test_eval_fg_kernel_streamed_receptor(big_system, kind):
+    """K1 with the receptor streamed through shared-memory tiles: the same
+    bounds as at the resident size."""
+    test_eval_fg_kernel(big_system, kind)
+
+
+def test_async_mc_kernel_streamed_receptor(big_system):
+    """K3 with the receptor streamed through shared-memory tiles, on
+    supplied uniforms: the same checks as at the resident size."""
+    test_async_mc_kernel_on_supplied_uniforms(big_system)
+
+
 def test_async_mc_kernel_philox_window(system):
     """A window on the kernel's own draws: 0/1 flags, accepts only on
     completed rows, completed rows first, finite energies; the same seed
@@ -379,6 +412,32 @@ def test_probe_kernels(card):
     assert probes.probe_mxu.launches >= 1
     with pytest.raises(ValueError):
         probes.probe_mxu(x["tgt"][:40].contiguous(), x["g"], reps)
+
+
+@pytest.mark.parametrize("rows,kdim", [(2048, 896), (4096, 896), (256, 912)])
+def test_probe_mxu_wgmma_shapes(card, rows, kdim):
+    """K11 (wgmma, g loaded by TMA) at the main path's 4,096 rows, at 2,048
+    (64 blocks), and at a depth that is not a multiple of 64 (912: the last
+    k step runs alone): the checksum within 2e-5 of the sum of the terms'
+    magnitudes, two calls equal; a depth above what shared memory holds
+    raises."""
+    from gnina_tpu_torch import probes
+
+    rng = np.random.default_rng(rows + kdim)
+    reps = 4
+    tgt = torch.as_tensor(rng.integers(0, kdim, (rows, 1)).astype(np.int32),
+                          device=card)
+    g = torch.as_tensor(rng.standard_normal((kdim, probes.ROW_WIDTH)).astype(
+        np.float32), device=card).to(torch.bfloat16)
+    got = float(probes.probe_mxu(tgt, g, reps))
+    ref = float(probes.probe_mxu_plain(tgt, g, reps))
+    mag = reps * float(g.float()[tgt[:, 0].long()].abs().sum())
+    assert abs(got - ref) <= 2e-5 * mag
+    assert got == float(probes.probe_mxu(tgt, g, reps))
+    deep = torch.zeros((probes.MXU_KMAX + 16, probes.ROW_WIDTH),
+                       dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):
+        probes.probe_mxu(tgt, deep, reps)
 
 
 # ------------------------------------------------------------- the CLI ----
