@@ -256,7 +256,10 @@ def phase_k8(S, k2_starts, errs):
     for bit the uncoupled kernel's, that the same launch twice gives the
     same bits, and that done_frac = 1.0 is the uncoupled launch.  At L=128
     half the lanes start from minima and half from jittered poses, so that
-    the lanes end at different iterations and the count decides.  In
+    the lanes end at different iterations and the count decides.  A pose
+    does not wait for its group at every iteration: it runs on and takes
+    its state at the stop back from K8's ring; the lanes that did (the
+    wrapper's `overrun`) are counted, and some must have.  In
     k_lockstep_mc (S=16, L=128 and L=64) on supplied uniforms against the
     plain steps."""
     import torch
@@ -270,6 +273,7 @@ def phase_k8(S, k2_starts, errs):
     shapes = (("refine", S.pack, S.lanes, S.scal_r, True, mixed),
               ("finish", S.pack_out, S.out_lanes, S.scal_s, False, mins))
     lines = []
+    rolled_total = 0
     for label, pk, nl, sc, wm, (r, t) in shapes:
         for async_ls in (False, True):
             tag = "[async_ls,done_frac]" if async_ls else "[done_frac]"
@@ -336,11 +340,13 @@ def phase_k8(S, k2_starts, errs):
                     else:
                         worst3 = max(worst3, err)
             votes = {}
+            rolled = {}
             for frac in (0.5, 0.9):
                 kv, pv = [], []
                 a = fd.bfgs_minimize(terms, r, t, sc, pk, S.miniters, wm,
                                      async_ls=async_ls, done_frac=frac,
                                      votes=kv)
+                rolled[frac] = int((fd.bfgs_minimize.overrun > 0).sum())
                 b = fd.bfgs_minimize(terms, r, t, sc, pk, S.miniters, wm,
                                      async_ls=async_ls, done_frac=frac)
                 torch.cuda.synchronize()
@@ -420,6 +426,7 @@ def phase_k8(S, k2_starts, errs):
                 check(bool(torch.isfinite(a[0]).all()),
                       f"K8 {label} {frac}: non-finite poses")
                 stops[frac] = sorted(set(gi.tolist()))
+            rolled_total += sum(rolled.values())
             check(stops[0.5][0] <= stops[0.9][0],
                   f"K8 {label}: a lower done_frac stopped later")
             # up to the earlier stop the two runs are the same search
@@ -444,17 +451,22 @@ def phase_k8(S, k2_starts, errs):
                 f"(done counts equal to the plain version's at {votes_eq} of "
                 f"{votes_met} meetings); one stop per group, ended lanes "
                 f"bit-equal to the uncoupled kernel, two launches "
-                f"bit-equal, 1.0 bit-equal to uncoupled")
+                f"bit-equal, 1.0 bit-equal to uncoupled; {rolled[0.5]} "
+                f"(0.5) and {rolled[0.9]} (0.9) lanes ran past their "
+                f"group's stop and rolled back")
     for ln in lines:
         print(ln, flush=True)
+    check(rolled_total > 0, "K8: no lane ran past its group's stop: the "
+          "poses waited for their groups")
 
-    # The barrier's own cost: 128 copies of one pose do the same work in
+    # The group stop's own cost: 128 copies of one pose do the same work in
     # every block, so no block waits for a slower one, and with done_frac
     # 0.99 the group stops where each pose stops anyway.  What the coupled
     # launch takes beyond the uncoupled one, over the iterations it ran, is
-    # the meeting itself (with the launch's extra cost: the cooperative
-    # launch and the zeroed words).  Timed in turns: free, coupled,
-    # coupled, free.
+    # the vote, the read of the words and the ring record of an iteration,
+    # and the one wait at the run's end (with the launch's extra cost: the
+    # cooperative launch and the zeroed scratch).  Timed in turns: free,
+    # coupled, coupled, free.
     r1 = jit[0][:1].expand(S.lanes, -1).contiguous()
     t1 = jit[1][:1].expand(S.lanes, -1).contiguous()
     parts = []
@@ -476,7 +488,7 @@ def phase_k8(S, k2_starts, errs):
                      f"and {ms[2]:.3f} ms over {its:.0f} "
                      f"{'ticks' if async_ls else 'iterations'}, "
                      f"{1e3 * extra / max(its, 1.0):.2f} us each")
-    print("[3c] K8's meeting alone (128 copies of one pose, done_frac 0.99, "
+    print("[3c] K8's vote alone (128 copies of one pose, done_frac 0.99, "
           "the launch's extra cost included): " + "; ".join(parts),
           flush=True)
 
@@ -527,6 +539,7 @@ def phase_k8(S, k2_starts, errs):
             return got, rep, same, ek, er, int((~tight).sum())
 
         got, rep, same, ek, er, n_loose = rows(frac)
+        rolled = int((fd.lockstep_mc_window.overrun > 0).sum())
         again = fd.lockstep_mc_window(terms, r, t, S.scal_h, pk, ecur, 16,
                                       maxit, uniforms=uni, done_frac=frac)
         torch.cuda.synchronize()
@@ -562,7 +575,7 @@ def phase_k8(S, k2_starts, errs):
                 f"iterations of at most {16 * maxit} as in the plain steps, "
                 f"{n_loose} of {ek.numel()} rows beyond rtol {inner[0]}, "
                 f"atol {inner[1]}, max |de| {err:.2e}, trial counts differ "
-                f"on {nflip} rows")
+                f"on {nflip} rows, {rolled} lanes rolled back in some step")
         if control:
             _, _, _, ek1, er1, n_loose1 = rows(1.0)
             part += (f" (the uncoupled kernel against its plain steps on "

@@ -68,6 +68,10 @@ GROUP = 128           # lanes per done_frac group (the JAX kernel's block, LB)
 # per evaluation.
 SMEM_LIMIT = 232448 - 1024   # the card's per-block maximum, less the
                              # kernels' static shared memory (terms, scal)
+SMEM_PER_SM = 233472         # an SM's shared memory (228 KB)
+SMEM_BLOCK_EXTRA = 2048      # a block's static shared memory and the 1 KB
+                             # the runtime reserves, rounded up
+CARD_SMS = 132               # H100 SXM: the plan's SM count off the card
 REC_ROW_BYTES = 32
 REC_RESIDENT_BYTES = 192 * 1024
 REC_TILE_ATOMS = 2048
@@ -238,10 +242,11 @@ class SmemPlan(NamedTuple):
 
 def state_floats(n: int, m: int, d: int) -> int:
     """Floats of a pose block's state in shared memory (csrc/fused_dock.cu
-    smem_floats): clamped atoms, pack, frames, atoms, per-warp pair sums,
-    node forces, BFGS, pose states, scalars."""
+    smem_floats): clamped atoms, per-atom sums, pack, frames, atoms,
+    per-warp pair sums, node forces, BFGS, pose states, scalars."""
     nwarps = BLOCK_THREADS // 32
     return (n * 4
+            + n * 8
             + n * 3 + n * 6 + m * 3 + m * 3 + n * n + d
             + n + m + m
             + m + m + m * 4 + m * 3 + m * 3
@@ -272,6 +277,26 @@ def smem_plan(n: int, m: int, d: int, k: int) -> SmemPlan:
         raise ValueError(f"a pose block needs {nbytes} bytes of shared "
                          f"memory (N={n}, M={m}); the card has {SMEM_LIMIT}")
     return SmemPlan(tile, False, -(-k // tile), nbytes)
+
+
+def block_plan(lanes: int, sms: int, nbytes: int) -> int:
+    """Pose blocks an SM of the fused kernels for a launch of `lanes` poses
+    on a card of `sms` SMs, each block holding `nbytes` of dynamic shared
+    memory (smem_plan): 1 while the poses fit on the SMs one a piece, or
+    while two blocks' shared memory does not fit on an SM (a streamed
+    receptor's tiles); else 2, so that one pose's serial control overlaps
+    the other's pair loops.  The kernel is built for each (128 registers a
+    thread at one block an SM, 64 at two); both give the same bits."""
+    if lanes > sms and 2 * (nbytes + SMEM_BLOCK_EXTRA) <= SMEM_PER_SM:
+        return 2
+    return 1
+
+
+def _sm_count(device) -> int:
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return CARD_SMS
 
 
 def conf_to_packed(conf: Conf, m: int):
@@ -1231,7 +1256,7 @@ class _PackArgs(ctypes.Structure):
         "lc", "ap", "node", "parent", "layer", "relax", "relo", "imask",
         "dofmask", "nheavy", "rec", "lane_lig")]
         + [(f, ctypes.c_int) for f in ("L", "N", "M", "LY", "K", "D",
-                                        "rec_tile")])
+                                        "rec_tile", "per_sm")])
 
 
 class _TermArgs(ctypes.Structure):
@@ -1296,7 +1321,9 @@ def _pack_args(pack: DockPack, device) -> _PackArgs:
         _check(t, f"pack.{f}", shape, _PACK_DTYPES[f], device)
         setattr(a, f, t.data_ptr())
     a.L, a.N, a.M, a.LY, a.K, a.D = lanes, n, m, ly, k, d
-    a.rec_tile = smem_plan(n, m, d, k).rec_tile
+    plan = smem_plan(n, m, d, k)
+    a.rec_tile = plan.rec_tile
+    a.per_sm = block_plan(lanes, _sm_count(device), plan.nbytes)
     return a
 
 
@@ -1321,6 +1348,15 @@ def _addr(struct):
     return ctypes.c_void_p(ctypes.addressof(struct))
 
 
+class _Made:
+    """What one call of a launch function made: the kernel launches (a host
+    int the C entry point sets) and, under K8, the lanes' overruns."""
+
+    def __init__(self):
+        self.n = ctypes.c_int(0)
+        self.overrun = None
+
+
 class _KernelWrapper:
     """A kernel's Python entry point: plain version on CPU tensors, the
     CUDA kernel on CUDA tensors.  `launches` counts the launches of the
@@ -1332,10 +1368,14 @@ class _KernelWrapper:
     (`calls_by_lanes` the calls) and `launches_by_mode` by the kernel mode
     the call selected (the keyword named `mode_flag`: async_ls on K2 and K5,
     warm_ls on K3); `launches_coupled` counts the launches with done_frac <
-    1.  The fill that zeroes K8's barrier words is PyTorch's and is not
-    counted.  Every plain and launch function takes its mode flag and
-    done_frac by keyword only, so the count cannot miss a flag passed by
-    position."""
+    1.  The fill that zeroes K8's scratch is PyTorch's and is not counted.
+    Every plain and launch function takes its mode flag and done_frac by
+    keyword only, so the count cannot miss a flag passed by position.
+    After a call with done_frac < 1 on the card, `overrun` holds a (L,)
+    int32 tensor on the card: the iterations (ticks) each lane ran past its
+    group's stop, summed over the call's runs, before it took its state at
+    the stop back from K8's ring (csrc/fused_dock.cu GroupSync).  Which
+    lanes run ahead is up to the scheduler; no output depends on it."""
 
     def __init__(self, name, plain, launch, mode_flag=None):
         self.name = name
@@ -1351,6 +1391,7 @@ class _KernelWrapper:
         self.calls_by_lanes = collections.Counter()
         self.launches_by_mode = collections.Counter()
         self.launches_coupled = 0
+        self.overrun = None
 
     def __call__(self, terms: VinaTerms, rigid, tors, scal, pack: DockPack,
                  *args, **kw):
@@ -1359,12 +1400,14 @@ class _KernelWrapper:
         if rigid.device.type != "cuda":
             raise ValueError(f"{self.name}: unsupported device "
                              f"{rigid.device}")
-        made = ctypes.c_int(0)
+        made = _Made()
         try:
             return self._launch(made, terms, rigid, tors, scal, pack, *args,
                                 **kw)
         finally:
-            n = made.value
+            n = made.n.value
+            if made.overrun is not None:
+                self.overrun = made.overrun
             self.launches += n
             self.calls += int(n > 0)
             self.launches_by_lanes[int(rigid.shape[0])] += n
@@ -1396,23 +1439,65 @@ def _launch_eval_fg(made, terms, rigid, tors, scal, pack):
     code = _cuda.lib().gt_eval_fg(
         _addr(pa), _addr(ta), _ptr(rigid), _ptr(tors),
         _ptr(scal), _ptr(e), _ptr(em), _ptr(g), _ptr(coords), _stream(),
-        ctypes.byref(made))
+        ctypes.byref(made.n))
     _raise_on(code, "eval_fg")
     return e, em, g, coords
 
 
-def _group_words(lanes, run_slots, runs, done_frac, device):
-    """K8's barrier words: one per (group, run, iteration), zeroed, or None
-    when uncoupled; with the words per group and the target count."""
+def ring_floats(m: int) -> int:
+    """Floats of one K8 ring record (csrc/fused_dock.cu ring_floats): the
+    iterate (8 + M), the trial point (8 + M), f, the Metropolis energy and
+    the three counters."""
+    return 2 * (8 + m) + 5
+
+
+def k8_scratch_words(lanes: int, m: int, run_slots: int, runs: int) -> int:
+    """32-bit words of K8's scratch (csrc/fused_dock.cu GroupSync) for
+    `runs` runs of `run_slots` iterations (ticks) each: per group the done
+    words (runs x run_slots) and a leave count a run, per lane an overrun
+    count and a ring of run_slots records."""
+    if min(lanes, m) < 1 or min(run_slots, runs) < 0:
+        raise ValueError(f"K8 scratch for lanes={lanes}, m={m}, "
+                         f"run_slots={run_slots}, runs={runs}")
+    groups = -(-lanes // GROUP)
+    return (groups * runs * run_slots + groups * runs + lanes
+            + lanes * run_slots * ring_floats(m))
+
+
+class _GroupScratch(NamedTuple):
+    """K8's scratch of one call: the zeroed buffer the kernel takes, its
+    done words (groups, runs x run_slots) and lane overruns (L,) as views,
+    and the target count."""
+
+    buf: torch.Tensor
+    words: torch.Tensor
+    overrun: torch.Tensor
+    per_group: int
+    target: int
+
+
+def _group_scratch(lanes, m, run_slots, runs, done_frac, device):
+    """K8's scratch, or None when uncoupled (done_frac = 1)."""
     if not 0.0 < done_frac <= 1.0:
         raise ValueError(f"done_frac {done_frac} outside (0, 1]")
-    if done_frac >= 1.0:
-        return None, 0, 0
-    per_group = max(int(run_slots) * int(runs), 1)
-    groups = (lanes + GROUP - 1) // GROUP
-    words = torch.zeros(max(groups, 1) * per_group, dtype=torch.int32,
-                        device=device)
-    return words, per_group, int(done_frac * GROUP)
+    if done_frac >= 1.0 or lanes == 0:
+        return None
+    groups = -(-lanes // GROUP)
+    per_group = int(run_slots) * int(runs)
+    buf = torch.zeros(k8_scratch_words(lanes, m, run_slots, runs),
+                      dtype=torch.int32, device=device)
+    n_words = groups * per_group
+    over0 = n_words + groups * runs
+    return _GroupScratch(buf, buf[:n_words].view(groups, per_group),
+                         buf[over0:over0 + lanes], per_group,
+                         int(done_frac * GROUP))
+
+
+def _scratch_args(gs):
+    """The kernel's (gsync, slots_per_group, done_target) arguments."""
+    if gs is None:
+        return _ptr(None), 0, 0
+    return _ptr(gs.buf), gs.per_group, gs.target
 
 
 def _run_slots(maxiters, num_trials, async_ls):
@@ -1427,8 +1512,8 @@ def _launch_bfgs(made, terms, rigid, tors, scal, pack, maxiters,
 
     dev, n, m, lanes = _common_checks(rigid, tors, scal, pack)
     pa = _pack_args(pack, dev)
-    words, per_group, target = _group_words(
-        lanes, _run_slots(maxiters, num_trials, async_ls), 1, done_frac, dev)
+    gs = _group_scratch(lanes, m, _run_slots(maxiters, num_trials, async_ls),
+                        1, done_frac, dev)
     orig = torch.empty_like(rigid)
     otor = torch.empty_like(tors)
     stats = torch.zeros((lanes, 8), dtype=torch.float32, device=dev)
@@ -1438,23 +1523,24 @@ def _launch_bfgs(made, terms, rigid, tors, scal, pack, maxiters,
         _addr(pa), _addr(ta), _ptr(rigid), _ptr(tors),
         _ptr(scal), int(maxiters), int(bool(want_metro)), int(num_trials),
         float(np.log2(ls_factor)), int(bool(async_ls)), _ptr(orig),
-        _ptr(otor), _ptr(stats), _ptr(coords), _ptr(words), per_group,
-        target, _stream(), ctypes.byref(made))
+        _ptr(otor), _ptr(stats), _ptr(coords), *_scratch_args(gs), _stream(),
+        ctypes.byref(made.n))
     _raise_on(code, "bfgs_minimize")
-    if votes is not None and words is not None:
-        votes.append(_votes_of(words, per_group, lanes))
+    if gs is not None:
+        made.overrun = gs.overrun
+        if votes is not None:
+            votes.append(_votes_of(gs.words, lanes))
     return orig, otor, stats, coords
 
 
-def _votes_of(words, per_group, lanes):
-    """K8's barrier words after a launch as the plain version's votes:
-    (groups, iterations) int32, the done count of a group's real lanes at
-    every iteration the group met, -1 where it did not.  A word holds the
+def _votes_of(w, lanes):
+    """K8's done words (groups, iterations) after a launch as the plain
+    version's votes: int32, the done count of a group's real lanes at every
+    iteration the group met, -1 where it did not.  A word holds the
     arrivals in its high half: every block of the group, or none."""
-    w = words.view(-1, per_group)
     groups = w.shape[0]
     nblocks = torch.full((groups, 1), GROUP, dtype=torch.int32,
-                         device=words.device)
+                         device=w.device)
     nblocks[-1] = lanes - (groups - 1) * GROUP
     arrived = w >> 16
     if not bool(((arrived == 0) | (arrived == nblocks)).all()):
@@ -1503,7 +1589,7 @@ def _launch_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
         ctypes.c_uint32(int(seed) & 0xFFFFFFFF), int(mc_steps),
         int(tick_budget), int(maxiters), int(num_trials),
         float(np.log2(ls_factor)), int(bool(warm_ls)),
-        *[_ptr(x) for x in out], _stream(), ctypes.byref(made))
+        *[_ptr(x) for x in out], _stream(), ctypes.byref(made.n))
     _raise_on(code, "async_mc_window")
     return out
 
@@ -1518,9 +1604,9 @@ def _launch_lockstep_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
     dev, n = _check_mc_inputs(rigid, tors, scal, pack, ecur, uniforms,
                               mc_steps)
     pa = _pack_args(pack, dev)
-    words, per_group, target = _group_words(
-        rigid.shape[0], _run_slots(maxiters, num_trials, async_ls), mc_steps,
-        done_frac, dev)
+    gs = _group_scratch(rigid.shape[0], tors.shape[1],
+                        _run_slots(maxiters, num_trials, async_ls), mc_steps,
+                        done_frac, dev)
     out = _mc_outputs(rigid, tors, n, mc_steps)
     ta = _term_args(terms)
     code = _cuda.lib().gt_lockstep_mc_window(
@@ -1528,9 +1614,11 @@ def _launch_lockstep_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
         _ptr(scal), _ptr(ecur), _ptr(uniforms),
         ctypes.c_uint32(int(seed) & 0xFFFFFFFF), int(mc_steps),
         int(maxiters), int(num_trials), float(np.log2(ls_factor)),
-        int(bool(async_ls)), *[_ptr(x) for x in out], _ptr(words), per_group,
-        target, _stream(), ctypes.byref(made))
+        int(bool(async_ls)), *[_ptr(x) for x in out], *_scratch_args(gs),
+        _stream(), ctypes.byref(made.n))
     _raise_on(code, "lockstep_mc_window")
+    if gs is not None:
+        made.overrun = gs.overrun
     return out
 
 

@@ -7,6 +7,8 @@ Without a card every test skips (marker `cuda`).  The plain versions
 themselves are held against the JAX package in test_torch_fused_dock.py.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -278,6 +280,49 @@ def test_lockstep_mc_kernel_philox_window(system):
     assert (a[6][:, 0, 1] == 1).all()
 
 
+def _eval_value_only(sys_, r, t):
+    """K1 without its gradient output (a null pointer): the value-only
+    evaluation a lockstep Armijo trial runs.  Returns (e, e_metro,
+    coords)."""
+    from gnina_tpu_torch.ops import _cuda
+
+    pk, dev = sys_["pack"], sys_["dev"]
+    e = torch.empty(pk.lanes, dtype=torch.float32, device=dev)
+    em = torch.empty_like(e)
+    coords = torch.empty((pk.lanes, pk.dims[0], 3), dtype=torch.float32,
+                         device=dev)
+    pa, ta = fd._pack_args(pk, r.device), fd._term_args(sys_["terms"])
+    made = ctypes.c_int(0)
+    code = _cuda.lib().gt_eval_fg(
+        fd._addr(pa), fd._addr(ta), fd._ptr(r), fd._ptr(t),
+        fd._ptr(sys_["scal"]), fd._ptr(e), fd._ptr(em), fd._ptr(None),
+        fd._ptr(coords), fd._stream(), ctypes.byref(made))
+    assert code == 0 and made.value == 1
+    return e, em, coords
+
+
+@pytest.mark.parametrize("kind", ["random", "perturbed"])
+@pytest.mark.parametrize("receptor", ["resident", "streamed"])
+def test_value_only_energies_are_the_gradient_evaluations(
+        system, big_system, kind, receptor):
+    """The energy and Metropolis energy of a value-only evaluation equal,
+    bit for bit, those of a value+gradient evaluation of the same poses
+    (the same pair sums in the same order): a lockstep Armijo trial
+    evaluated with its gradient decides as the value-only trial would, and
+    an accepted one needs no second evaluation.  With the receptor resident
+    in shared memory and streamed through tiles."""
+    sys_ = system if receptor == "resident" else big_system
+    r, t = fx.packed_poses(np.random.default_rng(11), sys_["pack"].lanes,
+                           sys_["lo"], sys_["hi"], sys_["lig"], M,
+                           sys_["dev"], kind)
+    e, em, coords = _eval_value_only(sys_, r, t)
+    got = fd.eval_fg(sys_["terms"], r, t, sys_["scal"], sys_["pack"])
+    torch.cuda.synchronize()
+    assert torch.equal(e, got[0]) and torch.equal(em, got[1])
+    assert torch.equal(coords, got[3])
+    assert bool(torch.isfinite(e).all())
+
+
 def test_wrappers_check_their_inputs(system):
     r, t = _poses(system, "random", 6)
     with pytest.raises(ValueError, match="shape"):
@@ -333,6 +378,59 @@ def test_group_stop_kernel(system, async_ls, done_frac):
     one = fd.bfgs_minimize(*args, async_ls=async_ls, done_frac=1.0)
     assert all(torch.equal(a, b) for a, b in zip(free, one))
     assert bool((free[2][:, 5] == 0).all())
+
+
+def test_group_stop_rolls_back_poses_past_the_stop(system):
+    """K8 without the per-iteration wait, on one full group (128 lanes,
+    half from minima, half jittered) at done_frac 0.5: a pose runs on past
+    its group's stop and takes its state at the stop back from the ring.
+    At the main path's 14 iterations some lane must have run past the stop
+    in one of the two line-search modes (the wrapper's `overrun`); in
+    lockstep mode every lane then equals, bit for bit, the uncoupled kernel
+    cut at the group's stop (maxiters = the stop), and two launches are
+    bit-equal.  At 3 iterations the stop and the done counts equal the
+    plain version's, and the energies are within the K2 three-iteration
+    bound on lanes with the same trial counts."""
+    dev = system["dev"]
+    pk = system["pack"].with_lanes(torch.arange(
+        2, device=dev, dtype=torch.int32).repeat_interleave(64))
+    r, t = fx.packed_poses(np.random.default_rng(12), 128, system["lo"],
+                           system["hi"], system["lig"], M, dev, "perturbed")
+    rm, tm = fd.bfgs_minimize(system["terms"], r, t, system["scal"], pk,
+                              30)[:2]
+    r = torch.cat([rm[:64], r[64:]]).contiguous()
+    t = torch.cat([tm[:64], t[64:]]).contiguous()
+    args = (system["terms"], r, t, system["scal"], pk)
+    rolled = 0
+    for async_ls in (False, True):
+        got = fd.bfgs_minimize(*args, 14, async_ls=async_ls, done_frac=0.5)
+        over = fd.bfgs_minimize.overrun
+        again = fd.bfgs_minimize(*args, 14, async_ls=async_ls, done_frac=0.5)
+        torch.cuda.synchronize()
+        assert over.shape == (128,) and bool((over >= 0).all())
+        rolled += int((over > 0).sum())
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        stop = got[2][:, 5]
+        assert bool((stop == stop[0]).all())
+        if not async_ls:
+            cut = fd.bfgs_minimize(*args, int(stop[0]))
+            torch.cuda.synchronize()
+            assert torch.equal(cut[0], got[0]) and torch.equal(cut[1], got[1])
+            assert torch.equal(cut[2][:, :5], got[2][:, :5])
+        kv, pv = [], []
+        got3 = fd.bfgs_minimize(*args, 3, async_ls=async_ls, done_frac=0.5,
+                                votes=kv)
+        torch.cuda.synchronize()
+        ref3 = fd.bfgs_minimize_plain(*args, 3, async_ls=async_ls,
+                                      done_frac=0.5, votes=pv)
+        assert torch.equal(got3[2][:, 5], ref3[2][:, 5])
+        assert torch.equal(kv[0] >= 0, pv[0] >= 0)
+        assert int((kv[0] - pv[0]).abs().max()) <= 2
+        same = ((got3[2][:, 2] == ref3[2][:, 2])
+                & (got3[2][:, 4] == ref3[2][:, 4]))
+        assert int(same.sum()) >= 126
+        _close(got3[2][same, 0], ref3[2][same, 0], 1e-2, 5e-2)
+    assert rolled > 0
 
 
 def test_group_stop_in_lockstep_mc_kernel(system):
