@@ -68,10 +68,6 @@ GROUP = 128           # lanes per done_frac group (the JAX kernel's block, LB)
 # per evaluation.
 SMEM_LIMIT = 232448 - 1024   # the card's per-block maximum, less the
                              # kernels' static shared memory (terms, scal)
-SMEM_PER_SM = 233472         # an SM's shared memory (228 KB)
-SMEM_BLOCK_EXTRA = 2048      # a block's static shared memory and the 1 KB
-                             # the runtime reserves, rounded up
-CARD_SMS = 132               # H100 SXM: the plan's SM count off the card
 REC_ROW_BYTES = 32
 REC_RESIDENT_BYTES = 192 * 1024
 REC_TILE_ATOMS = 2048
@@ -277,26 +273,6 @@ def smem_plan(n: int, m: int, d: int, k: int) -> SmemPlan:
         raise ValueError(f"a pose block needs {nbytes} bytes of shared "
                          f"memory (N={n}, M={m}); the card has {SMEM_LIMIT}")
     return SmemPlan(tile, False, -(-k // tile), nbytes)
-
-
-def block_plan(lanes: int, sms: int, nbytes: int) -> int:
-    """Pose blocks an SM of the fused kernels for a launch of `lanes` poses
-    on a card of `sms` SMs, each block holding `nbytes` of dynamic shared
-    memory (smem_plan): 1 while the poses fit on the SMs one a piece, or
-    while two blocks' shared memory does not fit on an SM (a streamed
-    receptor's tiles); else 2, so that one pose's serial control overlaps
-    the other's pair loops.  The kernel is built for each (128 registers a
-    thread at one block an SM, 64 at two); both give the same bits."""
-    if lanes > sms and 2 * (nbytes + SMEM_BLOCK_EXTRA) <= SMEM_PER_SM:
-        return 2
-    return 1
-
-
-def _sm_count(device) -> int:
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
-    return CARD_SMS
 
 
 def conf_to_packed(conf: Conf, m: int):
@@ -1256,7 +1232,7 @@ class _PackArgs(ctypes.Structure):
         "lc", "ap", "node", "parent", "layer", "relax", "relo", "imask",
         "dofmask", "nheavy", "rec", "lane_lig")]
         + [(f, ctypes.c_int) for f in ("L", "N", "M", "LY", "K", "D",
-                                        "rec_tile", "per_sm")])
+                                        "rec_tile")])
 
 
 class _TermArgs(ctypes.Structure):
@@ -1321,9 +1297,7 @@ def _pack_args(pack: DockPack, device) -> _PackArgs:
         _check(t, f"pack.{f}", shape, _PACK_DTYPES[f], device)
         setattr(a, f, t.data_ptr())
     a.L, a.N, a.M, a.LY, a.K, a.D = lanes, n, m, ly, k, d
-    plan = smem_plan(n, m, d, k)
-    a.rec_tile = plan.rec_tile
-    a.per_sm = block_plan(lanes, _sm_count(device), plan.nbytes)
+    a.rec_tile = smem_plan(n, m, d, k).rec_tile
     return a
 
 

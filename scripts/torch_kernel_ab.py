@@ -1,16 +1,20 @@
 """Time the fused docking kernels of several builds of csrc/fused_dock.cu on
 one card, in turns (A, B, ..., ..., B, A), at the main path's shapes.
 
-    python scripts/torch_kernel_ab.py OLD.cu NEW.cu [...]
+    python scripts/torch_kernel_ab.py OLD.cu NEW.cu[:NAME=VALUE,...] [...]
 
-Each source is compiled with the port's nvcc flags into its own library
-under gnina_tpu_torch/_build/ab/ and bound in place of the package's; a
-source from before the shared-memory plan (no `rec_tile` in its PackArgs)
-gets the older argument block (a source from before the plan of blocks an
-SM reads the block's leading fields).  For each source it prints, in ms,
+Each source is compiled with the port's nvcc flags (and -DNAME=VALUE for
+each definition after its colon, e.g. NEW.cu:MINB_EVAL=1 to build k_eval_fg
+for one pose block an SM) into its own library under
+gnina_tpu_torch/_build/ab/ and bound in place of the package's; a source
+from before the shared-memory plan (no `rec_tile` in its PackArgs) gets the
+older argument block.  For each source it prints, in ms,
 on the main path's receptor (a 20 A box, K=2,157 at seed 0), the median of
 calls made alone between CUDA events (the host's time to make the call
-counts) and the mean of calls made back to back (it overlaps the card's):
+counts), the mean of calls made back to back (it overlaps the card's), and
+the kernels' own time a call on the card from torch.profiler (the
+durations of the port's kernels, host time excluded; the one to compare
+kernels by, since the host's share varies with the machine's load):
 
   K3      one async window (L=128, S=128, tick budget 16, the main path's
           miniters, Philox)
@@ -19,7 +23,7 @@ counts) and the mean of calls made back to back (it overlaps the card's):
           (L=800, slope 1e5, from minima like the container's)
   K5      one lockstep window (L=128, S=16, miniters, Philox)
   K8      K2 and K4 at both shapes and K5 with done_frac = 0.9
-  K1      eval_fg (L=128)
+  K1      eval_fg (L=128, and L=800 as the exact rescore runs it)
 
 Every source sees the same starts (made once, before the turns, with the
 last source).  For each source whose K1 has a value-only mode it first
@@ -52,8 +56,7 @@ NEW_ARGS = fd._pack_args
 
 
 class _OldPackArgs(ctypes.Structure):
-    _fields_ = [f for f in fd._PackArgs._fields_
-                if f[0] not in ("rec_tile", "per_sm")]
+    _fields_ = [f for f in fd._PackArgs._fields_ if f[0] != "rec_tile"]
 
 
 def _old_pack_args(pack, device):
@@ -61,6 +64,12 @@ def _old_pack_args(pack, device):
     for f, _ in _OldPackArgs._fields_:
         setattr(a, f, getattr(b, f))
     return a
+
+
+def split_spec(spec):
+    """'PATH.cu:A=1,B=2' -> ('PATH.cu', ['-DA=1', '-DB=2'])."""
+    path, _, defs = spec.partition(":")
+    return path, [f"-D{d}" for d in defs.split(",") if d]
 
 
 def build(sources, verbose=False):
@@ -71,9 +80,10 @@ def build(sources, verbose=False):
     flags = _cuda.NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     jobs = {}
     for i, src in enumerate(sources):
+        path, defs = split_spec(src)
         so = os.path.join(out_dir, f"ab{i}.so")
         jobs[src] = (so, subprocess.Popen(
-            [_cuda._nvcc()] + flags + ["-o", so, src],
+            [_cuda._nvcc()] + flags + defs + ["-o", so, path],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for src, (so, proc) in jobs.items():
@@ -87,7 +97,7 @@ def build(sources, verbose=False):
                 flush=True)
         lib = ctypes.CDLL(os.path.abspath(so))
         _cuda._bind_fused(lib)
-        with open(src) as f:
+        with open(split_spec(src)[0]) as f:
             libs[src] = (lib, "rec_tile" not in f.read())
     return libs
 
@@ -109,11 +119,32 @@ def system(box, cube, dev):
     return lig, pack, lo, hi, fd.extract_vina_terms(sf)
 
 
+KERNELS = ("k_bfgs", "k_async_mc", "k_lockstep_mc", "k_eval_fg")
+
+
+def device_ms(fn, n):
+    """Mean device time of the port's kernels a call over n calls, from
+    torch.profiler's kernel records (one stream, so they add up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA
+             and any(k in ev.name for k in KERNELS))
+    return us / 1e3 / n
+
+
 def timed(fn, n):
     """(median of n calls, each alone between two events and a
     synchronize, so that the host's time to make the call counts; mean of
     n calls made back to back between two events, where the host's work
-    overlaps the card's)."""
+    overlaps the card's; device_ms of n calls)."""
     fn()
     torch.cuda.synchronize()
     ts = []
@@ -132,7 +163,7 @@ def timed(fn, n):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return float(np.median(ts)), a.elapsed_time(b) / n
+    return float(np.median(ts)), a.elapsed_time(b) / n, device_ms(fn, n)
 
 
 def main_path(dev):
@@ -163,15 +194,17 @@ def main_path(dev):
     for tag, frac in (("", 1.0), ("K8 ", 0.9)):
         for name, async_ls in (("K2", False), ("K4", True)):
             kw = dict(async_ls=async_ls, done_frac=frac)
-            rows[f"{tag}{name} L=128"] = (5, lambda kw=kw: fd.bfgs_minimize(
+            rows[f"{tag}{name} L=128"] = (10, lambda kw=kw: fd.bfgs_minimize(
                 terms, rp, tp, scal_r, pack, miniters, True, **kw))
             rows[f"{tag}{name} L={pack_out.lanes}"] = (
-                5, lambda kw=kw: fd.bfgs_minimize(
+                10, lambda kw=kw: fd.bfgs_minimize(
                     terms, rf, tf, scal_s, pack_out, miniters, False, **kw))
         rows[f"{tag}K5"] = (5, lambda frac=frac: fd.lockstep_mc_window(
             terms, r, t, scal_h, pack, ecur, 16, miniters, seed=2,
             done_frac=frac))
     rows["K1"] = (5, lambda: fd.eval_fg(terms, rp, tp, scal_r, pack))
+    rows[f"K1 L={pack_out.lanes}"] = (5, lambda: fd.eval_fg(
+        terms, rf, tf, scal_r, pack_out))
     return rows
 
 
@@ -221,7 +254,7 @@ def main(sources, verbose):
     dev = torch.device("cuda")
     libs = build(sources, verbose)
     for src in sources:
-        with open(src) as f:
+        with open(split_spec(src)[0]) as f:
             if "if (out_g)" in f.read():    # K1 has a value-only mode
                 use(*libs[src])
                 print(f"{src}: value-only energies bit-equal to the "
@@ -234,24 +267,28 @@ def main(sources, verbose):
         use(*libs[src])
         parts = []
         for name, (reps, fn) in rows.items():
-            one, b2b = timed(fn, reps)
+            one, b2b, on_card = timed(fn, reps)
             got[(src, name)].append(one)
             got[(src, name, "b2b")].append(b2b)
-            parts.append(f"{name} {one:.3f} / {b2b:.3f}")
+            got[(src, name, "device")].append(on_card)
+            parts.append(f"{name} {one:.3f} / {b2b:.3f} / {on_card:.3f}")
         print(f"K=2157 {src}: " + ", ".join(parts) + " (ms, alone / back "
-              "to back)", flush=True)
+              "to back / device)", flush=True)
     k, big = streamed(dev)
     use(*libs[sources[-1]])
     print(f"K={k} {sources[-1]}: " + ", ".join(
         f"{name} {timed(fn, reps)[0]:.3f}" for name, (reps, fn) in
         big.items()) + " (ms)", flush=True)
-    for mode, title in ((), "a call alone"), (("b2b",), "back to back"):
+    for mode, title in (((), "a call alone"), (("b2b",), "back to back"),
+                        (("device",), "the kernels on the card")):
         print(f"median over the turns (ms, {title}):")
-        print("row".ljust(14) + "".join(os.path.basename(s).rjust(16)
-                                        for s in sources))
+        print("row".ljust(14) + "".join(
+            os.path.basename(s).rjust(max(16, len(os.path.basename(s)) + 2))
+            for s in sources))
         for name in rows:
             print(name.ljust(14) + "".join(
-                f"{np.median(got[(s, name) + mode]):16.3f}"
+                f"{np.median(got[(s, name) + mode]):.3f}".rjust(
+                    max(16, len(os.path.basename(s)) + 2))
                 for s in sources))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -141,9 +141,12 @@ def instrument_warp0(s):
          "  __syncwarp();\n  block_bar();\n  SPD(3);\n  pair_phase<DERIV>(s, c.pk, *c.tm, c.sv, c.nh, c.rr);\n  SPD(4);\n  block_bar();\n  SPD(5);\n  finish_eval<DERIV>(s, c.pk, c.sv, c.nh, gout);\n  SPD(6);\n}"),
         # the force reduction spread over the block: a third barrier
         ("  __syncwarp();\n  block_bar();\n  pair_phase<DERIV>(s, c.pk, *c.tm, c.sv, c.nh, c.rr);\n  block_bar();\n  reduce_rows<DERIV>(s, c.pk, c.nh);\n  reduce_bar_sync();\n  finish_eval<DERIV>(s, c.pk, c.sv, c.nh, gout);\n}",
-         "  __syncwarp();\n  block_bar();\n  SPD(3);\n  pair_phase<DERIV>(s, c.pk, *c.tm, c.sv, c.nh, c.rr);\n  SPD(4);\n  block_bar();\n  SPD(5);\n  reduce_rows<DERIV>(s, c.pk, c.nh);\n  reduce_bar_sync();\n  SPD(11);\n  finish_eval<DERIV>(s, c.pk, c.sv, c.nh, gout);\n  SPD(6);\n}")])
-    s = rep(s, "  intra_pairs<DERIV>(s, tm, sv[0], N, nh);\n  for (int j = 0; j < rr.ntiles; ++j) {",
-            "  intra_pairs<DERIV>(s, tm, sv[0], N, nh);\n  SPD(12);\n  for (int j = 0; j < rr.ntiles; ++j) {")
+         "  __syncwarp();\n  block_bar();\n  SPD(3);\n  pair_phase<DERIV>(s, c.pk, *c.tm, c.sv, c.nh, c.rr);\n  SPD(4);\n  block_bar();\n  SPD(5);\n  reduce_rows<DERIV>(s, c.pk, c.nh);\n  reduce_bar_sync();\n  SPD(11);\n  finish_eval<DERIV>(s, c.pk, c.sv, c.nh, gout);\n  SPD(6);\n}"),
+        # ... for value+gradient evaluations only, node sums per kernel
+        ("  __syncwarp();\n  block_bar();\n  pair_phase<DERIV>(s, c.pk, *c.tm, c.sv, c.nh, c.rr);\n  block_bar();\n  if (DERIV) {\n    reduce_rows(s, c.pk, c.nh);\n    reduce_bar_sync();\n  }\n  finish_eval<DERIV, NL>(s, c.pk, c.sv, c.nh, gout);\n}",
+         "  __syncwarp();\n  block_bar();\n  SPD(3);\n  pair_phase<DERIV>(s, c.pk, *c.tm, c.sv, c.nh, c.rr);\n  SPD(4);\n  block_bar();\n  SPD(5);\n  if (DERIV) {\n    reduce_rows(s, c.pk, c.nh);\n    reduce_bar_sync();\n  }\n  SPD(11);\n  finish_eval<DERIV, NL>(s, c.pk, c.sv, c.nh, gout);\n  SPD(6);\n}")])
+    s = rep_first(s, [(f"  intra_pairs<{t}>(s, tm, sv[0], N, nh);\n", f"  intra_pairs<{t}>(s, tm, sv[0], N, nh);\n  SPD(12);\n")
+                      for t in ("DERIV",)])
     s = rep(s, "  if (!DERIV) return;\n", "  SPD(13);\n  if (!DERIV) return;\n")
     # k_async_mc
     s = rep(s, "  const uint2 key = make_uint2(seed, (uint32_t)lane);\n  for (int tick = 0; tick < t_total",
@@ -152,8 +155,9 @@ def instrument_warp0(s):
             "  for (int tick = 0; tick < t_total")
     s = rep(s, "    draw_uniforms(s, uniforms, tick, L, lane, key);\n    const float* u = s.sc + S_U;\n    float pg",
             "    SP(10);\n    draw_uniforms(s, uniforms, tick, L, lane, key);\n    SP(0);\n    const float* u = s.sc + S_U;\n    float pg")
-    s = rep(s, "    eval_pose<true>(c, s.t_rig, s.t_tor, s.gn);\n    const float f1 = s.sc[S_E], fm1 = s.sc[S_MET];\n    const float gy1",
-            "    SP(1);\n    eval_pose<true>(c, s.t_rig, s.t_tor, s.gn);\n    const float f1 = s.sc[S_E], fm1 = s.sc[S_MET];\n    SP(7);\n    const float gy1")
+    s = rep_first(s, [(f"    eval_pose<{t}>(c, s.t_rig, s.t_tor, s.gn);\n    const float f1 = s.sc[S_E], fm1 = s.sc[S_MET];\n    const float gy1",
+                       f"    SP(1);\n    eval_pose<{t}>(c, s.t_rig, s.t_tor, s.gn);\n    const float f1 = s.sc[S_E], fm1 = s.sc[S_MET];\n    SP(7);\n    const float gy1")
+                      for t in ("true", "true, 8")])
     s = rep(s, "    n_eval += 1.0f;\n    bool cdone = false;", "    SP(8);\n    n_eval += 1.0f;\n    bool cdone = false;")
     s = rep(s, "    if (cdone) {\n      // step completion", "    SP(9);\n    if (cdone) {\n      // step completion")
     s = rep(s, "  release_workers(s);\n  fk(s, s.c_rig, s.c_tor, pk.N, M, pk.LY);\n  write_pose_out(s, s.c_rig, s.c_tor, lane, pk.N, M, orig, otor, ocoords);\n  if (ln == 0) {\n    float* st = stats + (size_t)lane * 8;\n    st[0] = e_cur; st[1] = e_cur; st[2] = n_eval;",
@@ -332,7 +336,7 @@ def main(src_path):
     if "rec_tile" not in src:          # the argument block before the plan
         class Old(ctypes.Structure):
             _fields_ = [f for f in fd._PackArgs._fields_
-                        if f[0] not in ("rec_tile", "per_sm")]
+                        if f[0] != "rec_tile"]
         new_args = fd._pack_args
 
         def old_args(pack, device):

@@ -148,52 +148,88 @@ def test_bound_signatures_match_the_cuda_entry_points(name):
     assert len(getattr(lib, name).argtypes) == _c_params(_source(), name)
 
 
-def test_block_plan_two_poses_an_sm_where_lanes_outnumber_sms():
-    """One pose block an SM while the poses fit on the SMs one a piece (the
-    refine's and the MC windows' 128 lanes on 132 SMs), two above that (the
-    finish stages' and the rescore's 800 lanes), decided from the SM
-    count."""
-    nbytes = fd.smem_plan(24, 4, 9, 2157).nbytes
-    assert fd.block_plan(128, 132, nbytes) == 1
-    assert fd.block_plan(132, 132, nbytes) == 1
-    assert fd.block_plan(133, 132, nbytes) == 2
-    assert fd.block_plan(800, 132, nbytes) == 2
-    assert fd.block_plan(100, 64, nbytes) == 2
-    assert fd.block_plan(100, 114, nbytes) == 1
+def _kernel_body(src, name):
+    """The text of a __global__ kernel from its name to its closing brace."""
+    start = src.index(f") {name}(")
+    return src[start:src.index("\n}\n", start)]
 
 
-def test_block_plan_keeps_one_block_an_sm_when_two_do_not_fit():
-    """Two blocks must fit an SM's shared memory beside their static
-    shared memory and the runtime's reserve: a streamed receptor's two
-    tiles do not, so its blocks keep an SM each at any lane count."""
-    big = fd.smem_plan(24, 4, 9, 6154)
-    assert not big.resident
-    assert fd.block_plan(800, 132, big.nbytes) == 1
-    edge = fd.SMEM_PER_SM // 2 - fd.SMEM_BLOCK_EXTRA
-    assert fd.block_plan(800, 132, edge) == 2
-    assert fd.block_plan(800, 132, edge + 1) == 1
-
-
-def test_pack_args_carry_the_block_plan():
-    """The kernels' argument block names the plan (off the card for
-    CARD_SMS SMs); the kernel takes 1 or 2 and is built for each, 512
-    threads a block and 128 or 64 registers a thread."""
+def test_pack_args_mirror_the_cuda_struct():
+    """The ctypes argument block is the CUDA PackArgs field for field: the
+    pointers, then the ints, the receptor plan's tile last."""
+    src = _source()
+    body = re.search(r"struct PackArgs \{(.*?)\};", src, re.S).group(1)
+    names = []
+    for line in body.splitlines():
+        code = line.split("//")[0]
+        names += re.findall(r"\*?\s*(\w+)\s*[,;]", code)
+    assert names == [f for f, _ in fd._PackArgs._fields_]
     sf = get_scoring_function("vina")
-    lig = fx.ligand()
     rng = np.random.default_rng(0)
     k = 2157
-    for copies, per_sm in ((8, 1), (50, 2)):
-        pack = fd.build_pack([lig] * 16, rng.normal(size=(k, 3)) * 20.0,
+    for copies in (8, 50):                # the refine's and finish's lanes
+        pack = fd.build_pack([fx.ligand()] * 16,
+                             rng.normal(size=(k, 3)) * 20.0,
                              rng.integers(0, 4, k), np.ones(k, np.float32),
                              copies, sf.table, m_pad=4, device="cpu")
         a = fd._pack_args(pack, torch.device("cpu"))
-        assert (a.L, a.per_sm) == (16 * copies, per_sm)
+        n, m, ly, kk, lanes = pack.dims
+        assert (a.L, a.N, a.M, a.LY, a.K, a.D) == (lanes, n, m, ly, kk,
+                                                   5 + m)
+        assert a.rec_tile == fd.smem_plan(n, m, 5 + m, kk).rec_tile
+
+
+def test_kernel_instances_and_their_blocks_an_sm():
+    """One instance a kernel and mode, each with 512 threads a block and
+    its own pose blocks an SM (MINB_*: 1 or 2, settable with -D), but
+    k_bfgs, built for one and for two and picked at launch from the lanes,
+    the SM count and the occupancy; the C entry points launch those."""
     src = _source()
     assert int(re.search(r"#define NT (\d+)", src).group(1)) \
         == fd.BLOCK_THREADS
-    assert "if (pk->per_sm != 1 && pk->per_sm != 2)" in src
-    assert src.count("__launch_bounds__(NT, MINB)") == 4
-    for k in ("k_eval_fg<1>", "k_eval_fg<2>", "k_async_mc<1>",
-              "k_async_mc<2>", "k_bfgs<1, false>", "k_bfgs<2, true>",
-              "k_lockstep_mc<1, true>", "k_lockstep_mc<2, false>"):
-        assert k in src
+    kernels = {"k_eval_fg": "MINB_EVAL", "k_async_mc": "MINB_ASYNC_MC",
+               "k_lockstep_mc": "MINB_LOCKSTEP_MC", "k_bfgs": "MINB"}
+    for name, macro in kernels.items():
+        assert src.count(f"__launch_bounds__(NT, {macro}) {name}(") == 1
+        if macro != "MINB":
+            m = re.search(rf"#ifndef {macro}\n#define {macro} (\d+)\n"
+                          rf"#endif", src)
+            assert m and int(m.group(1)) in (1, 2)
+    assert src.count("__launch_bounds__(NT, ") == len(kernels)
+    assert "template <bool COUPLED, int MINB>\n__global__" in src
+    pick = src[src.index("static int bfgs_kernel("):]
+    pick = pick[:pick.index("\n}\n")]
+    for inst in ("k_bfgs<true, 1>", "k_bfgs<false, 1>", "k_bfgs<true, 2>",
+                 "k_bfgs<false, 2>"):
+        assert inst in pick
+    assert "pk->L > sms" in pick and "fit >= 2" in pick
+    assert "bfgs_kernel(pk, gsync != nullptr, &kernel, &smem)" in src
+    for launch in ("(const void*)k_eval_fg;", "(const void*)k_async_mc;",
+                   "gsync ? (const void*)k_lockstep_mc<true>",
+                   ": (const void*)k_lockstep_mc<false>;"):
+        assert launch in src
+
+
+def test_node_sums_and_trial_gradient_per_kernel():
+    """Every kernel's workers run one pair phase (pinned energy sums, so
+    that K1's energies are every kernel's); fk_backward's node sums run on
+    8 lanes a node in K1, K3 and K5 and on one in k_bfgs, and only K5's
+    BFGS loop (GRAD_FIRST) evaluates trial 0 with its gradient."""
+    src = _source()
+    lanes = {"k_eval_fg": "8", "k_async_mc": "8"}
+    for name in ("k_eval_fg", "k_bfgs", "k_async_mc", "k_lockstep_mc"):
+        body = _kernel_body(src, name)
+        assert body.count("worker_loop(c)") == 1
+        for nl in re.findall(r"eval_pose<\w+, (\w+)>", body):
+            assert nl == lanes[name]
+    assert "bfgs_run<COUPLED, false>" in _kernel_body(src, "k_bfgs")
+    assert "bfgs_run<COUPLED, true>" in _kernel_body(src, "k_lockstep_mc")
+    run = src[src.index("BfgsResult bfgs_run(Ctx& c"):]
+    run = run[:run.index("// K2 / K4")]
+    assert "constexpr int NL = GRAD_FIRST ? 8 : 1;" in run
+    assert run.count("eval_pose<true, NL>(c,") == 3
+    assert run.count("eval_pose<false, NL>(c,") == 1
+    assert "grad = GRAD_FIRST;" in run
+    terms = src[src.index("void pair_terms("):]
+    terms = terms[:terms.index("\n}\n")]
+    assert terms.count("__fmaf_rn(") == 3

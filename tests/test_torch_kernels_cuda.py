@@ -433,6 +433,57 @@ def test_group_stop_rolls_back_poses_past_the_stop(system):
     assert rolled > 0
 
 
+def _bfgs_instances(fn):
+    """The blocks-an-SM template argument of every k_bfgs launch fn makes,
+    from torch.profiler's kernel names (demangled or not)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and "k_bfgs" in ev.name]
+    return out, {2 if (", 2>" in n or "Li2E" in n) else 1 for n in names}
+
+
+@pytest.mark.parametrize("async_ls", [False, True])
+@pytest.mark.parametrize("done_frac", [1.0, 0.5])
+def test_bfgs_instances_give_the_same_bits(system, async_ls, done_frac):
+    """k_bfgs is built for one pose block an SM (128 registers) and for two
+    (64), and a launch with more lanes than the card has SMs takes the
+    second: 128 poses (half from minima, half jittered) give, bit for bit,
+    what the first 128 lanes of such a launch of the same poses repeated
+    give, uncoupled and under K8 (whole 128-lane groups, so every group
+    meets the same stop)."""
+    dev = system["dev"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    copies = sms // 128 + 1
+    lig_of = torch.arange(2, device=dev, dtype=torch.int32) \
+        .repeat_interleave(64)
+    pk = system["pack"].with_lanes(lig_of)
+    pk_big = system["pack"].with_lanes(lig_of.repeat(copies))
+    r, t = fx.packed_poses(np.random.default_rng(13), 128, system["lo"],
+                           system["hi"], system["lig"], M, dev, "perturbed")
+    rm, tm = fd.bfgs_minimize(system["terms"], r, t, system["scal"], pk,
+                              30)[:2]
+    r = torch.cat([rm[:64], r[64:]]).contiguous()
+    t = torch.cat([tm[:64], t[64:]]).contiguous()
+    kw = dict(async_ls=async_ls, done_frac=done_frac)
+    one, kinds = _bfgs_instances(lambda: fd.bfgs_minimize(
+        system["terms"], r, t, system["scal"], pk, 14, **kw))
+    assert kinds == {1}
+    big, kinds = _bfgs_instances(lambda: fd.bfgs_minimize(
+        system["terms"], r.repeat(copies, 1).contiguous(),
+        t.repeat(copies, 1).contiguous(), system["scal"], pk_big, 14, **kw))
+    assert kinds == {2}
+    for a, b in zip(one, big):
+        assert a.shape[0] == 128 and b.shape[0] == 128 * copies
+        assert torch.equal(a, b[:128])
+
+
 def test_group_stop_in_lockstep_mc_kernel(system):
     """K8 in k_lockstep_mc (S=4, one iteration a step, supplied uniforms):
     rows against the plain steps at K5's bounds, one iteration count for
