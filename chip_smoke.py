@@ -37,9 +37,9 @@ the card's busy time by kernel.
 Phases print one line each; any failed check exits non-zero.  The line
 before the last is the kernel table as JSON (`launches` counts kernel
 launches, `calls` the wrapper calls that made them: a K8 call makes one
-cooperative launch per set of co-resident groups, a probe call two), the
-one before it the card's `nvidia-smi` name and power limit, and the last
-line is
+cooperative launch per set of co-resident groups, a K9 or K10 call one, a
+K11 call two), the one before it the card's `nvidia-smi` name and power
+limit, and the last line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -63,7 +63,11 @@ BF16_PEAK = 989e12      # H100 SXM dense bf16 in the tensor cores, FLOP/s
 BF16_VECTOR_PEAK = 133.8e12
 # operations per pair of the probe's pair energy (probes.pair_energies): 9
 # for the distance, 8 for the two gaussians, 18 for the repulsion and the two
-# ramps with their factors, 11 to weigh, cut and add (each exp or sqrt one)
+# ramps with their factors, 11 to weigh, cut and add (each exp or sqrt one).
+# Three of them (two exp, one sqrt) run on the H100's special function
+# pipe, 16 a clock an SM: at 1.98 GHz about as long as the FP32 bound
+# itself (0.075 against 0.072 ms at the probe's default sizes), a co-limit
+# that the bound does not count.
 OPS_PROBE_PAIR = 46
 # FP32 operations per (heavy ligand atom, receptor atom) pair and
 # evaluation, counted from eval_pose in csrc/fused_dock.cu: the distance
@@ -249,8 +253,11 @@ def phase_k8(S, k2_starts, errs):
     group ran the same number of iterations, is held to them wherever the
     uncoupled kernel meets them too, which at least 99% of lanes must; a
     lane with other counts had an Armijo test decided the other way, at
-    most 1% may, and one such lane can move its group's stop, in at most
-    one group a call); then at the main
+    most 1% may, and such a lane can move its group's stop: a stop may
+    differ from plain only in a group that holds a lane whose uncoupled
+    kernel and plain counts differ at the same depth, which the plain
+    version, whose sums on the card come out the same in every run, shows
+    alike in both runs); then at the main
     path's depth that every lane of a group reports one stop, that no lane
     ran past it, that a lane which ends on its own before the stop is bit
     for bit the uncoupled kernel's, that the same launch twice gives the
@@ -287,6 +294,7 @@ def phase_k8(S, k2_starts, errs):
             worst1 = worst3 = 0.0
             stops = {}
             moved_full = {}
+            moved_flip = [0, 0]      # moved stops, groups with a flip
             votes_met = votes_eq = 0
             cap_slots = (S.miniters * fd.NUM_TRIALS + 1 if async_ls
                          else S.miniters)
@@ -314,17 +322,28 @@ def phase_k8(S, k2_starts, errs):
                 return gs, rs, near
 
             for iters in (1, 3):
-                _, _, near_free = pair(iters, 1.0)
+                fs, fr, near_free = pair(iters, 1.0)
                 check(float(near_free.float().mean()) >= 0.99,
                       f"K8 {label}: the uncoupled kernel leaves the K2 "
                       f"bound on {int((~near_free).sum())} lanes")
+                # groups holding a lane whose uncoupled counts (trials or
+                # ticks, iterations, accepts) differ between kernel and
+                # plain version: an Armijo, descent or convergence test
+                # decided the other way, which may move the group's stop
+                flipped = set((torch.nonzero(
+                    (fs[:, 2:5] != fr[:, 2:5]).any(1))[:, 0]
+                    // fd.GROUP).tolist())
                 for frac in (0.5, 0.9):
                     gs, rs, near = pair(iters, frac)
                     moved = gs[:, 5] != rs[:, 5]
-                    n_moved = len(set((torch.nonzero(moved)[:, 0]
-                                       // fd.GROUP).tolist()))
-                    check(n_moved <= 1, f"K8 {label} {frac}: the stop "
-                          f"differs from plain in {n_moved} groups")
+                    off = set((torch.nonzero(moved)[:, 0]
+                               // fd.GROUP).tolist())
+                    check(len(off - flipped) == 0, f"K8 {label} {frac}: at "
+                          f"{iters} iterations the stop differs from plain "
+                          f"in groups {sorted(off)}, without a flipped lane "
+                          f"in {sorted(off - flipped)}")
+                    moved_flip[0] += len(off)
+                    moved_flip[1] += len(flipped)
                     same = ((gs[:, 2] == rs[:, 2]) & (gs[:, 4] == rs[:, 4])
                             & ~moved)
                     nflip = int((~same & ~moved).sum())
@@ -439,7 +458,11 @@ def phase_k8(S, k2_starts, errs):
                 f"[3c] K8 bfgs_minimize{tag}/{label} (L={nl}) vs plain at "
                 f"done_frac 0.5 and 0.9: max |de| {worst1:.2e} at 1 "
                 f"iteration (rtol 5e-4, atol 5e-3), {worst3:.2e} at 3 (rtol "
-                f"1e-2, atol 5e-2); at {S.miniters} iterations the groups "
+                f"1e-2, atol 5e-2); at 1 and 3 iterations {moved_flip[0]} "
+                f"stops moved against plain, each in one of the "
+                f"{moved_flip[1]} groups (summed over the four cases) that "
+                f"hold a lane flipped in the uncoupled search; at "
+                f"{S.miniters} iterations the groups "
                 f"stopped after {stops[0.5]} (0.5) and {stops[0.9]} (0.9) "
                 f"{'ticks' if async_ls else 'iterations'}, the plain "
                 f"version's stops in all but {moved_full[0.5]} (0.5) and "
@@ -775,6 +798,14 @@ def phase_probes(S, errs):
         print(f"[4e] {name} vs plain: checksum {got:.6g} vs {ref:.6g}, |d| "
               f"{err:.3g} (allowed {tol:g} x {mag:.4g} = {tol * mag:.3g}), "
               f"two launches equal", flush=True)
+    # the floor under K10: an empty kernel launched with K10's grid
+    plan = probes.gather_plan(a, reps)
+    floor = timed(lambda: probes.launch_empty(plan["blocks"],
+                                              plan["threads"]), 5)
+    gather = next(r for r in rows if r["name"] == "probe_gather_loop")
+    print(f"[4e] an empty kernel on probe_gather_loop's grid ({plan['blocks']} "
+          f"blocks of {plan['threads']}): {floor:.4f} ms a call, against "
+          f"{gather['ms']:.4f} ms", flush=True)
     # the probes' own path: the script a user runs, counts set to 0 before
     for pr in probes.PROBES:
         pr.reset()
@@ -782,14 +813,15 @@ def phase_probes(S, errs):
     torch.cuda.synchronize()
     counts = {pr.name: pr.launches for pr in probes.PROBES}
     calls = {pr.name: pr.calls for pr in probes.PROBES}
-    check(all(counts[nm] == probes.LAUNCHES_PER_CALL * calls[nm] > 0
+    check(all(counts[nm] == probes.LAUNCHES_PER_CALL[nm] * calls[nm] > 0
               for nm in counts), f"probe launches {counts} of calls {calls}")
     for row in rows:
         row["launches"] = counts[row["name"].split("/")[0]]
         row["calls"] = calls[row["name"].split("/")[0]]
     print(f"[4e] python -m gnina_tpu_torch.probes in process: calls {calls}, "
-          f"kernel launches {counts} ({probes.LAUNCHES_PER_CALL} a call: the "
-          f"probe's kernel and the sum of its partial sums)", flush=True)
+          f"kernel launches {counts} ({probes.LAUNCHES_PER_CALL} a call: K9 "
+          f"and K10 add their blocks' sums in block 0, K11 in a second "
+          f"kernel)", flush=True)
     return rows
 
 

@@ -131,11 +131,14 @@ def _bind_fused(so) -> None:
 
 def _bind_probes(so) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    so.gt_probe_pairs.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp,
-                                  vp]
-    so.gt_probe_gather.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+    cu = ctypes.c_uint32
+    so.gt_probe_pairs.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                  ci, ci, vp, cu, vp, vp]
+    so.gt_probe_gather.argtypes = [vp, vp, vp, ci, ci, ci, vp, cu, vp, vp]
     so.gt_probe_mxu.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
-    for fn in (so.gt_probe_pairs, so.gt_probe_gather, so.gt_probe_mxu):
+    so.gt_probe_empty.argtypes = [ci, ci, vp]
+    for fn in (so.gt_probe_pairs, so.gt_probe_gather, so.gt_probe_mxu,
+               so.gt_probe_empty):
         fn.restype = ci
     so.gt_probe_error_string.argtypes = [ci]
     so.gt_probe_error_string.restype = ctypes.c_char_p

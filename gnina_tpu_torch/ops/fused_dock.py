@@ -479,6 +479,18 @@ def _intra(terms: VinaTerms, coords, ap, imask, v_intra, want_deriv):
     return e_row, g
 
 
+def _node_add(dst, idx, src):
+    """dst (P, M, 3) plus the rows of src (P, N, 3) added into rows idx (P,
+    N) of dim 1 (scatter_add).  On the card as a one-hot product: its sums
+    come out the same in every run, where scatter_add's atomics add in
+    another order each time and so move an Armijo test now and then."""
+    if src.device.type == "cpu":
+        return dst.scatter_add(1, idx[..., None].expand(-1, -1, 3), src)
+    onehot = (idx[..., None] == torch.arange(
+        dst.shape[1], device=src.device)).to(src.dtype)          # (P, N, M)
+    return dst + torch.einsum("pnm,pnc->pmc", onehot, src)
+
+
 def _fk_backward(coords, gatom, fo, axl, pack: DockPack, lane_lig):
     """tree.h:374-393: atom gradients -> per-node force and torque (about
     the node's own origin), passed up the tree deepest layer first, then
@@ -490,17 +502,15 @@ def _fk_backward(coords, gatom, fo, axl, pack: DockPack, lane_lig):
     p, m = parent.shape
     rel = coords - _gather(fo, node)
     F = torch.zeros((p, m, 3), dtype=torch.float32, device=coords.device)
-    Tq = torch.zeros_like(F)
-    F.scatter_add_(1, node[..., None].expand(-1, -1, 3), gatom)
-    Tq.scatter_add_(1, node[..., None].expand(-1, -1, 3), _cross(rel, gatom))
+    Tq = _node_add(F, node, _cross(rel, gatom))
+    F = _node_add(F, node, gatom)
     for lyr in range(pack.num_layers, 0, -1):
         sel = (layer == lyr)[..., None]
         po = _gather(fo, parent)
         fc = torch.where(sel, F, 0.0)
         tc = torch.where(sel, Tq + _cross(fo - po, F), 0.0)
-        idx = parent[..., None].expand(-1, -1, 3)
-        F = F.scatter_add(1, idx, fc)
-        Tq = Tq.scatter_add(1, idx, tc)
+        F = _node_add(F, parent, fc)
+        Tq = _node_add(Tq, parent, tc)
     gt = torch.sum(axl * Tq, dim=-1)                            # (P, M)
     g = torch.cat([F[:, 0], Tq[:, 0], gt[:, 1:]], dim=1)
     return g * pack.dofmask[lig]

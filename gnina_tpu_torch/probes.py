@@ -16,7 +16,11 @@ version here that computes the same scalar: the checksum of `reps`
 repetitions, which the TPU kernel writes to out_ref[0, 0].  A wrapper takes
 the plain version only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.  Every kernel launch adds one to its wrapper's `launches`:
-two a call, the probe's kernel and the one-block sum of its partial sums.
+LAUNCHES_PER_CALL[name] a call.  K9 and K10 are one launch each (block 0
+adds the other blocks' sums once they have landed); K11 is two, its kernel
+and the one-block sum of its partial sums.  pairs_plan and gather_plan make
+K9's and K10's launch geometry, which the wrappers pass to the kernels and
+the CPU tests check.
 
     python -m gnina_tpu_torch.probes [--device cpu]
 
@@ -48,10 +52,19 @@ ROW_WIDTH = 128       # width of a table row and of g
 # deepest g K11 takes: a block holds one 64-column half of g in shared
 # memory (kdim x 128 B of the card's 227 KB)
 MXU_KMAX = 1792
-# kernel launches of one probe call (csrc/probes.cu): the probe's kernel,
-# which leaves one partial sum per block, warp or lookup, and k_sum, one
-# block that adds them in a fixed order
-LAUNCHES_PER_CALL = 2
+# kernel launches of one call of each probe (csrc/probes.cu): K9 and K10
+# leave one partial sum a block and their block 0 adds them in a fixed
+# order; K11 leaves one a warp and k_sum, one block, adds them
+LAUNCHES_PER_CALL = {"probe_pairs": 1, "probe_gather_loop": 1,
+                     "probe_mxu": 2}
+# K9's tile (K9_THREADS, K9_LT, K9_KT in csrc/probes.cu, which refuses a
+# grid made for another): threads a block, lanes and receptor atoms a
+# thread; the ligand atoms split into PAIRS_SPLITS ranges, more where one
+# range would overflow the block's 48 KB of shared memory
+PAIRS_THREADS, PAIRS_LT, PAIRS_KT, PAIRS_SPLITS = 128, 2, 2, 4
+PAIRS_ATOMS_MAX = 1024        # ligand atoms a block stages (48 B each)
+# K10_THREADS, K10_UNITS: threads a block, (lookup, rep) units a thread
+GATHER_THREADS, GATHER_UNITS = 128, 5
 
 
 # --------------------------------------------------------------------------
@@ -83,6 +96,115 @@ def make_inputs(seed: int, lanes: int, n: int, k: int,
         "g": t(rng.standard_normal((MXU_KDIM, ROW_WIDTH)).astype(f32),
                ).to(torch.bfloat16),
     }
+
+
+# --------------------------------------------------------------------------
+# K9's and K10's launch geometry
+# --------------------------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pairs_plan(lanes: int, n: int, k: int) -> Dict[str, object]:
+    """K9's grid: x over the receptor (PAIRS_THREADS x PAIRS_KT atoms a
+    block), y over the lanes (PAIRS_LT a block), z over the ligand atoms
+    (`atoms` a block).  Thread t of block (x, y, z) holds receptor atoms
+    (x * PAIRS_KT + j) * PAIRS_THREADS + t, j < PAIRS_KT, against lanes
+    y * PAIRS_LT + i, i < PAIRS_LT, for atoms z * atoms + (0, 1, ...);
+    receptor atoms and lanes past the ends are padding whose energy is
+    exactly 0."""
+    if min(lanes, n, k) < 1:
+        raise ValueError(f"probe_pairs: empty shape L={lanes} N={n} K={k}")
+    splits = max(min(PAIRS_SPLITS, n), _cdiv(n, PAIRS_ATOMS_MAX))
+    atoms = _cdiv(n, splits)
+    grid = (_cdiv(k, PAIRS_THREADS * PAIRS_KT), _cdiv(lanes, PAIRS_LT),
+            _cdiv(n, atoms))
+    return {"grid": grid, "threads": PAIRS_THREADS, "atoms": atoms,
+            "blocks": grid[0] * grid[1] * grid[2]}
+
+
+def pairs_partition(lanes: int, n: int, k: int) -> Dict[str, np.ndarray]:
+    """Every real (atom, receptor, lane) triple with the block and thread
+    that compute it under pairs_plan, in the order a thread visits them
+    (atom, then lane, then its receptor atom j): int64 arrays `block`
+    (x + gx (y + gy z)), `thread`, `atom`, `rec`, `lane`."""
+    plan = pairs_plan(lanes, n, k)
+    gx, gy, gz = plan["grid"]
+    na = plan["atoms"]
+    # one axis per loop, outermost first: block (z, y, x), thread, then
+    # the thread's own loops: atom, lane, j
+    z, y, x, t, ia, il, j = np.meshgrid(
+        np.arange(gz), np.arange(gy), np.arange(gx),
+        np.arange(PAIRS_THREADS), np.arange(na), np.arange(PAIRS_LT),
+        np.arange(PAIRS_KT), indexing="ij")
+    atom = z * na + ia
+    rec = (x * PAIRS_KT + j) * PAIRS_THREADS + t
+    lane = y * PAIRS_LT + il
+    real = (atom < n) & (rec < k) & (lane < lanes)
+    out = {"block": x + gx * (y + gy * z), "thread": t, "atom": atom,
+           "rec": rec, "lane": lane}
+    return {key: v[real].astype(np.int64) for key, v in out.items()}
+
+
+def pairs_sum_in_order(e: torch.Tensor, reps: int) -> torch.Tensor:
+    """K9's checksum from pair energies e (N, K, L) in float32, summed as
+    the kernel sums them: each thread's accumulators over its atoms and
+    lanes (one per receptor slot j, the first started from carry * 1e-30),
+    added into the thread's carry each repetition; then each block's
+    threads, and the blocks in their order."""
+    n, k, lanes = e.shape
+    plan = pairs_plan(lanes, n, k)
+    gx, gy, gz = plan["grid"]
+    na = plan["atoms"]
+    # (gz, gy, gx, thread, atom, lane, j), padding 0
+    pad = torch.zeros((gz * na, gx * PAIRS_KT * PAIRS_THREADS,
+                       gy * PAIRS_LT), dtype=torch.float32)
+    pad[:n, :k, :lanes] = e.float()
+    pad = pad.reshape(gz, na, gx, PAIRS_KT, PAIRS_THREADS, gy, PAIRS_LT)
+    pad = pad.permute(0, 5, 2, 4, 1, 6, 3)
+    carry = torch.zeros(pad.shape[:4], dtype=torch.float32)
+    for _ in range(reps):
+        acc = torch.zeros(pad.shape[:4] + (PAIRS_KT,), dtype=torch.float32)
+        acc[..., 0] = carry * 1e-30
+        for i in range(na):
+            for il in range(PAIRS_LT):
+                acc = acc + pad[..., i, il, :]
+        s = acc[..., 0]
+        for j in range(1, PAIRS_KT):
+            s = s + acc[..., j]
+        carry = carry + s
+    blocks = carry.sum(3).reshape(-1)
+    return blocks.sum()
+
+
+def gather_plan(a: int, reps: int) -> Dict[str, int]:
+    """K10's grid: the units u = rep * a + lookup dealt to the grid's
+    threads in GATHER_UNITS turns (thread g takes g + k * threads, k <
+    GATHER_UNITS), GATHER_THREADS a block; a unit past a * reps loads
+    nothing."""
+    if a < 1 or reps < 1:
+        raise ValueError(f"probe_gather_loop: {a} lookups x {reps} reps")
+    units = a * reps
+    if units > 2 ** 31 - 1:
+        raise ValueError(f"probe_gather_loop: {units} units overflow int32")
+    blocks = _cdiv(units, GATHER_THREADS * GATHER_UNITS)
+    return {"blocks": blocks, "threads": GATHER_THREADS, "units": units}
+
+
+def gather_partition(a: int, reps: int) -> Dict[str, np.ndarray]:
+    """The (lookup, repetition) of every unit a thread loads, with its
+    block, thread and turn, under gather_plan."""
+    plan = gather_plan(a, reps)
+    grid = plan["blocks"] * GATHER_THREADS
+    g, k = np.meshgrid(np.arange(grid), np.arange(GATHER_UNITS),
+                       indexing="ij")
+    u = (g + k * grid).reshape(-1)
+    g, k = g.reshape(-1), k.reshape(-1)
+    real = u < plan["units"]
+    u, g, k = u[real], g[real], k[real]
+    return {"block": g // GATHER_THREADS, "thread": g % GATHER_THREADS,
+            "turn": k, "lookup": u % a, "rep": u // a}
 
 
 # --------------------------------------------------------------------------
@@ -190,6 +312,21 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+_SLOTS: Dict[torch.device, tuple] = {}
+
+
+def _slots(dev, blocks: int):
+    """The device's block slots of K9 and K10 (int64: a block's partial sum
+    and the number of the launch that wrote it) and a new launch number.
+    Launches that share the slots run in the order of one stream."""
+    buf, epoch = _SLOTS.get(dev, (None, 0))
+    if buf is None or buf.numel() < blocks:
+        buf = torch.zeros(max(blocks, 1024), dtype=torch.int64, device=dev)
+    epoch = epoch % 0xFFFFFFFF + 1
+    _SLOTS[dev] = (buf, epoch)
+    return buf, epoch
+
+
 def _launch_pairs(lig, ligp, rec, recp, reps, dtype=torch.float32):
     from gnina_tpu_torch.ops import _cuda
 
@@ -201,11 +338,13 @@ def _launch_pairs(lig, ligp, rec, recp, reps, dtype=torch.float32):
     _check(ligp, "ligp", (8, n), torch.float32, dev)
     _check(rec, "rec", (k, 4), torch.float32, dev)
     _check(recp, "recp", (k, 4), torch.float32, dev)
-    partial = torch.empty(lanes, dtype=torch.float32, device=dev)
+    plan = pairs_plan(lanes, n, k)
+    slots, epoch = _slots(dev, plan["blocks"])
     out = torch.empty(1, dtype=torch.float32, device=dev)
     code = _cuda.probes_lib().gt_probe_pairs(
         _p(lig), _p(ligp), _p(rec), _p(recp), lanes, n, k, int(reps),
-        int(dtype == torch.bfloat16), _p(partial), _p(out), _stream())
+        int(dtype == torch.bfloat16), *plan["grid"], plan["atoms"],
+        _p(slots), epoch, _p(out), _stream())
     return _finish(code, "probe_pairs", out)
 
 
@@ -217,12 +356,23 @@ def _launch_gather(idx, cells, w, reps):
     _check(idx, "idx", (a,), torch.int32, dev)
     _check(cells, "cells", (cells.shape[0], ROW_WIDTH), torch.float32, dev)
     _check(w, "w", (a, 8), torch.float32, dev)
-    partial = torch.empty(a, dtype=torch.float32, device=dev)
+    plan = gather_plan(a, int(reps))
+    slots, epoch = _slots(dev, plan["blocks"])
     out = torch.empty(1, dtype=torch.float32, device=dev)
     code = _cuda.probes_lib().gt_probe_gather(
-        _p(idx), _p(cells), _p(w), a, int(reps), _p(partial), _p(out),
-        _stream())
+        _p(idx), _p(cells), _p(w), a, int(reps), plan["blocks"], _p(slots),
+        epoch, _p(out), _stream())
     return _finish(code, "probe_gather_loop", out)
+
+
+def launch_empty(blocks: int, threads: int) -> None:
+    """An empty kernel on the current stream, `blocks` x `threads`: the
+    floor under K10's time (not a probe; no count)."""
+    from gnina_tpu_torch.ops import _cuda
+
+    code = _cuda.probes_lib().gt_probe_empty(int(blocks), int(threads),
+                                             _stream())
+    _finish(code, "empty kernel", [None])
 
 
 def _launch_mxu(tgt, g, reps):
@@ -246,8 +396,9 @@ def _launch_mxu(tgt, g, reps):
 
 class _Probe:
     """A probe's entry point: plain version on CPU tensors, the CUDA kernel
-    on CUDA tensors.  `launches` counts kernel launches only, LAUNCHES_PER_CALL
-    a call; `calls` counts the calls that launched."""
+    on CUDA tensors.  `launches` counts kernel launches only,
+    LAUNCHES_PER_CALL[name] a call; `calls` counts the calls that
+    launched."""
 
     def __init__(self, name, plain, launch):
         self.name = name
@@ -266,7 +417,7 @@ class _Probe:
             raise ValueError(f"{self.name}: unsupported device "
                              f"{first.device}")
         out = self._launch(first, *args, **kw)
-        self.launches += LAUNCHES_PER_CALL
+        self.launches += LAUNCHES_PER_CALL[self.name]
         self.calls += 1
         return out
 

@@ -17,7 +17,7 @@ durations of the port's kernels, host time excluded; the one to compare
 kernels by, since the host's share varies with the machine's load):
 
   K3      one async window (L=128, S=128, tick budget 16, the main path's
-          miniters, Philox)
+          miniters, Philox); K6 the same window under warm_ls
   K2, K4  bfgs_minimize in both line-search modes at the refine shape
           (L=128, caps 1000, from perturbed poses) and the finish shape
           (L=800, slope 1e5, from minima like the container's)
@@ -72,20 +72,21 @@ def split_spec(spec):
     return path, [f"-D{d}" for d in defs.split(",") if d]
 
 
-def build(sources, verbose=False):
-    """{source: (library, older argument block)}, all nvcc started
-    together; verbose prints ptxas' register and spill report."""
+def compile_all(sources, verbose=False, prefix="ab"):
+    """{source: shared library path}, one nvcc each, all started together
+    (the definitions after a source's colon passed as -D); verbose prints
+    ptxas' register and spill report."""
     out_dir = os.path.join(_cuda.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
     flags = _cuda.NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
     jobs = {}
     for i, src in enumerate(sources):
         path, defs = split_spec(src)
-        so = os.path.join(out_dir, f"ab{i}.so")
+        so = os.path.join(out_dir, f"{prefix}{i}.so")
         jobs[src] = (so, subprocess.Popen(
             [_cuda._nvcc()] + flags + defs + ["-o", so, path],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    libs = {}
+    out = {}
     for src, (so, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
@@ -95,7 +96,16 @@ def build(sources, verbose=False):
                 ln for ln in err.splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling" in ln),
                 flush=True)
-        lib = ctypes.CDLL(os.path.abspath(so))
+        out[src] = os.path.abspath(so)
+    return out
+
+
+def build(sources, verbose=False):
+    """{source: (library, older argument block)} for builds of
+    fused_dock.cu."""
+    libs = {}
+    for src, so in compile_all(sources, verbose).items():
+        lib = ctypes.CDLL(so)
         _cuda._bind_fused(lib)
         with open(split_spec(src)[0]) as f:
             libs[src] = (lib, "rec_tile" not in f.read())
@@ -120,9 +130,11 @@ def system(box, cube, dev):
 
 
 KERNELS = ("k_bfgs", "k_async_mc", "k_lockstep_mc", "k_eval_fg")
+PROBE_KERNELS = ("k_probe_pairs", "k_probe_gather", "k_probe_mxu", "k_sum",
+                 "k_empty")
 
 
-def device_ms(fn, n):
+def device_ms(fn, n, kernels=KERNELS):
     """Mean device time of the port's kernels a call over n calls, from
     torch.profiler's kernel records (one stream, so they add up)."""
     from torch.autograd import DeviceType
@@ -136,11 +148,11 @@ def device_ms(fn, n):
         torch.cuda.synchronize()
     us = sum(ev.time_range.elapsed_us() for ev in prof.events()
              if ev.device_type == DeviceType.CUDA
-             and any(k in ev.name for k in KERNELS))
+             and any(k in ev.name for k in kernels))
     return us / 1e3 / n
 
 
-def timed(fn, n):
+def timed(fn, n, kernels=KERNELS):
     """(median of n calls, each alone between two events and a
     synchronize, so that the host's time to make the call counts; mean of
     n calls made back to back between two events, where the host's work
@@ -163,7 +175,8 @@ def timed(fn, n):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return float(np.median(ts)), a.elapsed_time(b) / n, device_ms(fn, n)
+    return float(np.median(ts)), a.elapsed_time(b) / n, \
+        device_ms(fn, n, kernels)
 
 
 def main_path(dev):
@@ -190,7 +203,10 @@ def main_path(dev):
     ecur = torch.full((pack.lanes,), 3.0e38, device=dev)
     rows = {
         "K3": (3, lambda: fd.async_mc_window(
-            terms, r, t, scal_h, pack, ecur, 128, 16, miniters, seed=2))}
+            terms, r, t, scal_h, pack, ecur, 128, 16, miniters, seed=2)),
+        "K6": (3, lambda: fd.async_mc_window(
+            terms, r, t, scal_h, pack, ecur, 128, 16, miniters, seed=2,
+            warm_ls=True))}
     for tag, frac in (("", 1.0), ("K8 ", 0.9)):
         for name, async_ls in (("K2", False), ("K4", True)):
             kw = dict(async_ls=async_ls, done_frac=frac)
@@ -250,6 +266,112 @@ def value_only_is_exact(dev):
     return ok
 
 
+def build_probes(sources, verbose=False):
+    """{source: (library, older entry points)} for builds of probes.cu."""
+    libs = {}
+    for src, so in compile_all(sources, verbose, "abp").items():
+        lib = ctypes.CDLL(so)
+        old = not hasattr(lib, "gt_probe_empty")
+        if old:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.gt_probe_pairs.argtypes = [vp, vp, vp, vp] + [ci] * 5 \
+                + [vp] * 3
+            lib.gt_probe_gather.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+            lib.gt_probe_mxu.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+            lib.gt_probe_error_string.argtypes = [ci]
+            lib.gt_probe_error_string.restype = ctypes.c_char_p
+        else:
+            _cuda._bind_probes(lib)
+        libs[src] = (lib, old)
+    return libs
+
+
+def probe_rows(lib, old, x, reps):
+    """{row: (calls, callable)} for one build of probes.cu."""
+    from gnina_tpu_torch import probes
+
+    _cuda._LIBS["probes"] = lib
+    pa = (x["lig"], x["ligp"], x["rec"], x["recp"], reps)
+    if not old:
+        return {
+            "K9 f32": (10, lambda: probes.probe_pairs(*pa)),
+            "K9 bf16": (10, lambda: probes.probe_pairs(
+                *pa, dtype=torch.bfloat16)),
+            "K10": (20, lambda: probes.probe_gather_loop(
+                x["idx"], x["cells"], x["w"], reps)),
+            "K11": (10, lambda: probes.probe_mxu(x["tgt"], x["g"], reps))}
+    p = probes._p
+    lanes, n, k = x["lig"].shape[1], x["ligp"].shape[1], x["rec"].shape[0]
+    a = n * lanes
+    part = torch.empty(max(lanes, a), device=x["lig"].device)
+    out = torch.empty(1, device=x["lig"].device)
+
+    def pairs(bf16):
+        return lambda: lib.gt_probe_pairs(
+            p(x["lig"]), p(x["ligp"]), p(x["rec"]), p(x["recp"]), lanes, n,
+            k, reps, bf16, p(part), p(out), probes._stream())
+
+    return {
+        "K9 f32": (10, pairs(0)), "K9 bf16": (10, pairs(1)),
+        "K10": (20, lambda: lib.gt_probe_gather(
+            p(x["idx"]), p(x["cells"]), p(x["w"]), a, reps, p(part), p(out),
+            probes._stream())),
+        "K11": (10, lambda: probes.probe_mxu(x["tgt"], x["g"], reps))}
+
+
+def main_probes(sources, verbose):
+    """The probes of each build of probes.cu in turns, then K10's floor and
+    K10 at larger lane counts for the last build."""
+    from gnina_tpu_torch import probes
+
+    dev = torch.device("cuda")
+    libs = build_probes(sources, verbose)
+    reps = 20
+    x = probes.make_inputs(0, 128, 32, 1280, dev)
+    got = collections.defaultdict(list)
+    names = ("K9 f32", "K9 bf16", "K10", "K11")
+    for src in sources + sources[::-1]:
+        rows = probe_rows(*libs[src], x, reps)
+        parts = []
+        for name in names:
+            n_calls, fn = rows[name]
+            res = timed(fn, n_calls, PROBE_KERNELS)
+            for mode, v in zip(((), ("b2b",), ("device",)), res):
+                got[(src, name) + mode].append(v)
+            parts.append(f"{name} {res[0]:.4f} / {res[1]:.4f} / "
+                         f"{res[2]:.4f}")
+        print(f"{src}: " + ", ".join(parts) + " (ms, alone / back to back "
+              "/ device)", flush=True)
+    for mode, title in (((), "a call alone"), (("b2b",), "back to back"),
+                        (("device",), "the kernels on the card")):
+        print(f"median over the turns (ms, {title}):")
+        for name in names:
+            print(name.ljust(10) + "".join(
+                f"{np.median(got[(s, name) + mode]):.4f}".rjust(12)
+                for s in sources) + "   " + " / ".join(
+                    os.path.basename(s) for s in sources))
+    lib, old = libs[sources[-1]]
+    _cuda._LIBS["probes"] = lib
+    if not old:
+        for lanes in (128, 1024, 8192):
+            xl = probes.make_inputs(0, lanes, 32, 16, dev)
+            a = 32 * lanes
+            plan = probes.gather_plan(a, reps)
+            k10 = timed(lambda: probes.probe_gather_loop(
+                xl["idx"], xl["cells"], xl["w"], reps), 20, PROBE_KERNELS)
+            floor = timed(lambda: probes.launch_empty(
+                plan["blocks"], plan["threads"]), 20, PROBE_KERNELS)
+            print(f"K10 L={lanes} ({a} lookups x {reps} reps, "
+                  f"{plan['blocks']} blocks): on the card {k10[2]:.4f} ms, "
+                  f"the empty kernel on the same grid {floor[2]:.4f} ms; "
+                  f"{1e6 * (k10[2] - floor[2]) / (a * reps):.4f} ns a "
+                  f"lookup above the floor; alone {k10[0]:.4f} / "
+                  f"{floor[0]:.4f} ms", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
 def main(sources, verbose):
     dev = torch.device("cuda")
     libs = build(sources, verbose)
@@ -296,7 +418,8 @@ def main(sources, verbose):
 
 
 if __name__ == "__main__":
-    argv = [a for a in sys.argv[1:] if a != "-v"]
+    argv = [a for a in sys.argv[1:] if a not in ("-v", "--probes")]
     if not argv or not torch.cuda.is_available():
         sys.exit(__doc__)
-    main(argv, "-v" in sys.argv[1:])
+    (main_probes if "--probes" in sys.argv[1:] else main)(
+        argv, "-v" in sys.argv[1:])

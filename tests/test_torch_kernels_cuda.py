@@ -531,8 +531,8 @@ def test_group_stop_in_lockstep_mc_kernel(system):
 def test_probe_kernels(card):
     """K9-K11 vs their plain versions at a small size: each checksum within
     2e-5 of the sum of the terms' magnitudes (2e-2 for bfloat16 pair
-    arithmetic); each call's two launches (the probe's kernel and the sum
-    of its partial sums) counted; two calls equal."""
+    arithmetic); each call's launches (probes.LAUNCHES_PER_CALL) counted;
+    two calls equal."""
     from gnina_tpu_torch import probes
 
     lanes, n, k, reps = 64, 4, 256, 3
@@ -544,7 +544,7 @@ def test_probe_kernels(card):
         before = (probes.probe_pairs.launches, probes.probe_pairs.calls)
         got = float(probes.probe_pairs(*pa, dtype=dtype))
         assert (probes.probe_pairs.launches, probes.probe_pairs.calls) == (
-            before[0] + probes.LAUNCHES_PER_CALL, before[1] + 1)
+            before[0] + probes.LAUNCHES_PER_CALL["probe_pairs"], before[1] + 1)
         ref = float(probes.probe_pairs_plain(*pa, dtype=dtype))
         assert abs(got - ref) <= tol * mag
         assert got == float(probes.probe_pairs(*pa, dtype=dtype))
@@ -561,6 +561,43 @@ def test_probe_kernels(card):
     assert probes.probe_mxu.launches >= 1
     with pytest.raises(ValueError):
         probes.probe_mxu(x["tgt"][:40].contiguous(), x["g"], reps)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_probe_pairs_ragged(card, dtype, tol):
+    """K9 at sizes that fill no tile (L=100, N=7, K=1000: padded lanes,
+    receptor atoms and a short ligand-atom range) against its plain
+    version within tol of the sum of the terms' magnitudes, as chip_smoke.py
+    holds it; two launches bit-equal."""
+    from gnina_tpu_torch import probes
+
+    lanes, n, k, reps = 100, 7, 1000, 3
+    x = probes.make_inputs(5, lanes, n, k, card)
+    pa = (x["lig"], x["ligp"], x["rec"], x["recp"], reps)
+    mag = reps * float(probes.pair_energies(*pa[:4]).abs().sum())
+    got = probes.probe_pairs(*pa, dtype=dtype)
+    ref = probes.probe_pairs_plain(*pa, dtype=dtype)
+    assert abs(float(got) - float(ref)) <= tol * mag
+    assert torch.equal(got, probes.probe_pairs(*pa, dtype=dtype))
+
+
+def test_probe_gather_ragged(card):
+    """K10 with 700 lookups x 3 repetitions (2,100 threads, not a multiple
+    of the block) against its plain version within 2e-5 of the sum of the
+    terms' magnitudes; two launches bit-equal; one launch a call."""
+    from gnina_tpu_torch import probes
+
+    x = probes.make_inputs(6, 100, 7, 64, card)
+    reps = 3
+    before = probes.probe_gather_loop.launches
+    got = probes.probe_gather_loop(x["idx"], x["cells"], x["w"], reps)
+    assert probes.probe_gather_loop.launches == before + 1
+    ref = probes.probe_gather_loop_plain(x["idx"], x["cells"], x["w"], reps)
+    mag = reps * float((x["cells"][x["idx"].long(), :8] * x["w"]).abs().sum())
+    assert abs(float(got) - float(ref)) <= 2e-5 * mag
+    assert torch.equal(got, probes.probe_gather_loop(x["idx"], x["cells"],
+                                                     x["w"], reps))
 
 
 @pytest.mark.parametrize("rows,kdim", [(2048, 896), (4096, 896), (256, 912)])
