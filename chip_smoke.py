@@ -37,9 +37,9 @@ the card's busy time by kernel.
 Phases print one line each; any failed check exits non-zero.  The line
 before the last is the kernel table as JSON (`launches` counts kernel
 launches, `calls` the wrapper calls that made them: a K8 call makes one
-cooperative launch per set of co-resident groups, a K9 or K10 call one, a
-K11 call two), the one before it the card's `nvidia-smi` name and power
-limit, and the last line is
+cooperative launch per set of co-resident groups, a probe call one), the
+one before it the card's `nvidia-smi` name and power limit, and the last
+line is
 {"ok": true, "device": {...}}.  Without a card, or without the rest of the
 repository beside it, the script exits non-zero and prints no result.
 """
@@ -813,15 +813,14 @@ def phase_probes(S, errs):
     torch.cuda.synchronize()
     counts = {pr.name: pr.launches for pr in probes.PROBES}
     calls = {pr.name: pr.calls for pr in probes.PROBES}
-    check(all(counts[nm] == probes.LAUNCHES_PER_CALL[nm] * calls[nm] > 0
+    check(all(counts[nm] == probes.LAUNCHES_PER_CALL * calls[nm] > 0
               for nm in counts), f"probe launches {counts} of calls {calls}")
     for row in rows:
         row["launches"] = counts[row["name"].split("/")[0]]
         row["calls"] = calls[row["name"].split("/")[0]]
     print(f"[4e] python -m gnina_tpu_torch.probes in process: calls {calls}, "
-          f"kernel launches {counts} ({probes.LAUNCHES_PER_CALL} a call: K9 "
-          f"and K10 add their blocks' sums in block 0, K11 in a second "
-          f"kernel)", flush=True)
+          f"kernel launches {counts} ({probes.LAUNCHES_PER_CALL} a call: "
+          f"block 0 adds the blocks' sums)", flush=True)
     return rows
 
 

@@ -7,8 +7,9 @@
 //   gt_probe_gather  K10: probe_gather_loop (:126, pallas_call :150)
 //   gt_probe_mxu     K11: probe_mxu (:163, pallas_call :182)
 // Each runs `reps` repetitions inside one launch and returns the scalar
-// checksum the TPU kernel writes to out_ref[0, 0].  The plain PyTorch
-// versions in gnina_tpu_torch/probes.py compute the same scalars.
+// checksum the TPU kernel writes to out_ref[0, 0]; block 0 adds the blocks'
+// partial sums.  The plain PyTorch versions in gnina_tpu_torch/probes.py
+// compute the same scalars.
 //
 // What bounds them on an H100 SXM (132 SMs, 1.98 GHz):
 //
@@ -57,7 +58,6 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
-#define PT 256   // threads per block, K11's final sum
 #define GT 128   // threads per block, K11
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -66,35 +66,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// sum over the block, returned to every thread (blockDim.x = PT)
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.0f;
-  for (int i = 0; i < PT / 32; ++i) s += red[i];
-  __syncthreads();
-  return s;
-}
-
-// out[0] = sum of x[0..n), one block, fixed order
-__global__ void __launch_bounds__(PT) k_sum(const float* x, int n, float* out) {
-  __shared__ float red[PT / 32];
-  float v = 0.0f;
-  for (int i = threadIdx.x; i < n; i += PT) v += x[i];
-  const float s = block_sum(v, red);
-  if (threadIdx.x == 0) out[0] = s;
-}
-
-// ------------------------------------------------------------ K9, K10 ----
+// --------------------------------------------------------- the checksum ----
 //
-// Both end in one launch without atomics.  Every block adds its threads'
-// sums in a fixed order and writes the result with one 8-byte store into
-// its slot, beside the launch's number (`epoch`, a new one each call);
-// the first warp of block 0 reads every slot until all carry this launch's
-// number and adds them in block order.  Two launches give the same bits.
-// A slot whose store has not landed yet is read again, so no fence orders
-// the stores, and block 0 waits only for the slowest block.
+// Each probe is one launch.  Every block adds its threads' sums in a fixed
+// order and writes the result with one 8-byte store into its slot, beside
+// the launch's number (`epoch`, a new one each call); block 0 reads every
+// slot, all its threads at once, until all carry this launch's number, and
+// adds them in block order.  No atomic touches a value: two launches give
+// the same bits.  A slot whose store has not landed yet is read again, so
+// no fence orders the stores, and block 0 waits only for the slowest
+// block.  The wait always ends: block 0 waits for blocks that wait for
+// nothing, and every block of a launch runs in the end.  The slots outlive
+// the call (probes._slots keeps them zeroed once, then only larger
+// numbers), so two calls of one probe must not run at once on one card.
 
 __device__ __forceinline__ void st_slot(unsigned long long* p,
                                         unsigned long long v) {
@@ -110,40 +94,46 @@ __device__ __forceinline__ unsigned long long ld_slot(
   return v;
 }
 
-// the block's sum of v into slots[block]; block 0 sums the slots into out
+// the block's sum of v (every thread's) into slots[block]; block 0 writes
+// the sum of all blocks' into out[0]
 __device__ void block_finish(float v, unsigned long long* slots,
                              unsigned epoch, float* out) {
   __shared__ float red[32];
   const unsigned nb = gridDim.x * gridDim.y * gridDim.z;
   const unsigned b = blockIdx.x + gridDim.x * (blockIdx.y
                                                + gridDim.y * blockIdx.z);
+  const int nw = blockDim.x >> 5;
   v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
     float s = 0.0f;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += red[i];
+    for (int i = 0; i < nw; ++i) s += red[i];
     st_slot(slots + b, ((unsigned long long)epoch << 32) | __float_as_uint(s));
   }
-  if (b != 0 || threadIdx.x >= 32) return;
-  // a slot that never lands ends the launch with an error, not a hang
-  for (long spins = 0;; ++spins) {
-    float s = 0.0f;
+  if (b != 0) return;
+  float s;
+  // back off (32 ns doubling to 1 us) between reads, so that block 0
+  // leaves its SM's issue slots to the blocks still at work there
+  for (unsigned nap = 32;; nap = min(2 * nap, 1024u)) {
+    s = 0.0f;
     bool ready = true;
-    for (unsigned i = threadIdx.x; i < nb; i += 32) {
+#pragma unroll 4
+    for (unsigned i = threadIdx.x; i < nb; i += blockDim.x) {
       const unsigned long long x = ld_slot(slots + i);
       ready = ready && (unsigned)(x >> 32) == epoch;
       s += __uint_as_float((unsigned)x);
     }
-    if (__all_sync(0xffffffffu, ready)) {
-      s = warp_sum(s);
-      if (threadIdx.x == 0) out[0] = s;
-      return;
-    }
-    // back off (32 ns doubling to 1 us) so that the waiting warp leaves
-    // its SM's issue slots to the blocks still at work there
-    __nanosleep(32u << (spins < 5 ? spins : 5));
-    if (spins > (1L << 24)) __trap();
+    if (__syncthreads_and(ready)) break;
+    __nanosleep(nap);
+  }
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.0f;
+    for (int i = 0; i < nw; ++i) t += red[i];
+    out[0] = t;
   }
 }
 
@@ -533,14 +523,15 @@ __device__ __forceinline__ void onehot_steps(float* d, int ks, int t0, int t1,
 // 64 x 16 boxes, 128-byte swizzle, completed on one mbarrier), in the
 // layout the wgmma descriptor names; every repetition then runs from shared
 // memory with no barrier: kdim / 16 wgmma.m64n64k16, 8 at a time.
-// partial[(blockIdx.x * 2 + blockIdx.y) * 4 + warp] = the warp's sum over
-// all repetitions.  A % 64 == 0, kdim % 16 == 0, kdim <= MXU_KMAX (the
-// block's half of g in shared memory), g is (kdim, 128).
+// The warps' sums over all repetitions go to the checksum by block_finish,
+// slot blockIdx.x + gridDim.x * blockIdx.y the block's.  A % 64 == 0,
+// kdim % 16 == 0, kdim <= MXU_KMAX (the block's half of g in shared
+// memory), g is (kdim, 128).
 #define MXU_KMAX 1792
 
 __global__ void __launch_bounds__(GT) k_probe_mxu(
     const __grid_constant__ CUtensorMap gmap, const int* tgt, int A, int kdim,
-    int reps, float* partial) {
+    int reps, unsigned long long* slots, unsigned epoch, float* out) {
   extern __shared__ __align__(1024) unsigned char mxu_smem[];
   // the swizzle pattern is keyed on address bits 7-9: align g to 1,024 B
   const uint32_t base = smem_u32(mxu_smem);
@@ -592,8 +583,8 @@ __global__ void __launch_bounds__(GT) k_probe_mxu(
     for (int i = 0; i < 32; i += 4) s += (d[i] + d[i + 1]) + (d[i + 2] + d[i + 3]);
     carry += warp_sum(s);
   }
-  if (lane == 0)
-    partial[(blockIdx.x * 2 + blockIdx.y) * (GT / 32) + warp] = carry;
+  // every lane holds its warp's carry
+  block_finish(lane == 0 ? carry : 0.0f, slots, epoch, out);
 }
 
 // The tensor map of g (kdim, 128) bf16 for k_probe_mxu: 64 x 16 boxes with
@@ -679,7 +670,8 @@ int gt_probe_empty(int blocks, int threads, void* stream) {
 }
 
 int gt_probe_mxu(const int* tgt, const void* g, int A, int kdim, int reps,
-                 float* partial, float* out, void* stream) {
+                 unsigned long long* slots, unsigned epoch, float* out,
+                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (A % 64 || kdim % 16 || kdim > MXU_KMAX || A == 0 || kdim == 0)
     return (int)cudaErrorInvalidValue;
@@ -691,10 +683,7 @@ int gt_probe_mxu(const int* tgt, const void* g, int A, int kdim, int reps,
       k_probe_mxu, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   k_probe_mxu<<<dim3(A / 64, 2), GT, smem, st>>>(map, tgt, A, kdim, reps,
-                                                 partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  k_sum<<<1, PT, 0, st>>>(partial, A / 8, out);
+                                                 slots, epoch, out);
   return (int)cudaGetLastError();
 }
 

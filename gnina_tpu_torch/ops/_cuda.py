@@ -135,7 +135,7 @@ def _bind_probes(so) -> None:
     so.gt_probe_pairs.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                   ci, ci, vp, cu, vp, vp]
     so.gt_probe_gather.argtypes = [vp, vp, vp, ci, ci, ci, vp, cu, vp, vp]
-    so.gt_probe_mxu.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+    so.gt_probe_mxu.argtypes = [vp, vp, ci, ci, ci, vp, cu, vp, vp]
     so.gt_probe_empty.argtypes = [ci, ci, vp]
     for fn in (so.gt_probe_pairs, so.gt_probe_gather, so.gt_probe_mxu,
                so.gt_probe_empty):

@@ -481,14 +481,13 @@ def _intra(terms: VinaTerms, coords, ap, imask, v_intra, want_deriv):
 
 def _node_add(dst, idx, src):
     """dst (P, M, 3) plus the rows of src (P, N, 3) added into rows idx (P,
-    N) of dim 1 (scatter_add).  On the card as a one-hot product: its sums
-    come out the same in every run, where scatter_add's atomics add in
-    another order each time and so move an Armijo test now and then."""
-    if src.device.type == "cpu":
-        return dst.scatter_add(1, idx[..., None].expand(-1, -1, 3), src)
-    onehot = (idx[..., None] == torch.arange(
-        dst.shape[1], device=src.device)).to(src.dtype)          # (P, N, M)
-    return dst + torch.einsum("pnm,pnc->pmc", onehot, src)
+    N) of dim 1, as scatter_add but by a masked sum over N: its sums come
+    out the same in every run on either device, where scatter_add's atomics
+    on the card add in another order each time and so move an Armijo test
+    now and then.  A row is selected, not multiplied by 0, so an inf stays
+    in its own node."""
+    mine = idx[..., None] == torch.arange(dst.shape[1], device=src.device)
+    return dst + torch.where(mine[..., None], src[:, :, None], 0.0).sum(1)
 
 
 def _fk_backward(coords, gatom, fo, axl, pack: DockPack, lane_lig):

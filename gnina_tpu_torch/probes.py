@@ -16,11 +16,9 @@ version here that computes the same scalar: the checksum of `reps`
 repetitions, which the TPU kernel writes to out_ref[0, 0].  A wrapper takes
 the plain version only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.  Every kernel launch adds one to its wrapper's `launches`:
-LAUNCHES_PER_CALL[name] a call.  K9 and K10 are one launch each (block 0
-adds the other blocks' sums once they have landed); K11 is two, its kernel
-and the one-block sum of its partial sums.  pairs_plan and gather_plan make
-K9's and K10's launch geometry, which the wrappers pass to the kernels and
-the CPU tests check.
+one a call, whose block 0 adds the other blocks' sums once they have
+landed.  pairs_plan and gather_plan make K9's and K10's launch geometry,
+which the wrappers pass to the kernels and the CPU tests check.
 
     python -m gnina_tpu_torch.probes [--device cpu]
 
@@ -52,11 +50,9 @@ ROW_WIDTH = 128       # width of a table row and of g
 # deepest g K11 takes: a block holds one 64-column half of g in shared
 # memory (kdim x 128 B of the card's 227 KB)
 MXU_KMAX = 1792
-# kernel launches of one call of each probe (csrc/probes.cu): K9 and K10
-# leave one partial sum a block and their block 0 adds them in a fixed
-# order; K11 leaves one a warp and k_sum, one block, adds them
-LAUNCHES_PER_CALL = {"probe_pairs": 1, "probe_gather_loop": 1,
-                     "probe_mxu": 2}
+# kernel launches of one probe call (csrc/probes.cu): each block leaves a
+# partial sum in its slot and block 0 adds them in a fixed order
+LAUNCHES_PER_CALL = 1
 # K9's tile (K9_THREADS, K9_LT, K9_KT in csrc/probes.cu, which refuses a
 # grid made for another): threads a block, lanes and receptor atoms a
 # thread; the ligand atoms split into PAIRS_SPLITS ranges, more where one
@@ -124,60 +120,6 @@ def pairs_plan(lanes: int, n: int, k: int) -> Dict[str, object]:
             "blocks": grid[0] * grid[1] * grid[2]}
 
 
-def pairs_partition(lanes: int, n: int, k: int) -> Dict[str, np.ndarray]:
-    """Every real (atom, receptor, lane) triple with the block and thread
-    that compute it under pairs_plan, in the order a thread visits them
-    (atom, then lane, then its receptor atom j): int64 arrays `block`
-    (x + gx (y + gy z)), `thread`, `atom`, `rec`, `lane`."""
-    plan = pairs_plan(lanes, n, k)
-    gx, gy, gz = plan["grid"]
-    na = plan["atoms"]
-    # one axis per loop, outermost first: block (z, y, x), thread, then
-    # the thread's own loops: atom, lane, j
-    z, y, x, t, ia, il, j = np.meshgrid(
-        np.arange(gz), np.arange(gy), np.arange(gx),
-        np.arange(PAIRS_THREADS), np.arange(na), np.arange(PAIRS_LT),
-        np.arange(PAIRS_KT), indexing="ij")
-    atom = z * na + ia
-    rec = (x * PAIRS_KT + j) * PAIRS_THREADS + t
-    lane = y * PAIRS_LT + il
-    real = (atom < n) & (rec < k) & (lane < lanes)
-    out = {"block": x + gx * (y + gy * z), "thread": t, "atom": atom,
-           "rec": rec, "lane": lane}
-    return {key: v[real].astype(np.int64) for key, v in out.items()}
-
-
-def pairs_sum_in_order(e: torch.Tensor, reps: int) -> torch.Tensor:
-    """K9's checksum from pair energies e (N, K, L) in float32, summed as
-    the kernel sums them: each thread's accumulators over its atoms and
-    lanes (one per receptor slot j, the first started from carry * 1e-30),
-    added into the thread's carry each repetition; then each block's
-    threads, and the blocks in their order."""
-    n, k, lanes = e.shape
-    plan = pairs_plan(lanes, n, k)
-    gx, gy, gz = plan["grid"]
-    na = plan["atoms"]
-    # (gz, gy, gx, thread, atom, lane, j), padding 0
-    pad = torch.zeros((gz * na, gx * PAIRS_KT * PAIRS_THREADS,
-                       gy * PAIRS_LT), dtype=torch.float32)
-    pad[:n, :k, :lanes] = e.float()
-    pad = pad.reshape(gz, na, gx, PAIRS_KT, PAIRS_THREADS, gy, PAIRS_LT)
-    pad = pad.permute(0, 5, 2, 4, 1, 6, 3)
-    carry = torch.zeros(pad.shape[:4], dtype=torch.float32)
-    for _ in range(reps):
-        acc = torch.zeros(pad.shape[:4] + (PAIRS_KT,), dtype=torch.float32)
-        acc[..., 0] = carry * 1e-30
-        for i in range(na):
-            for il in range(PAIRS_LT):
-                acc = acc + pad[..., i, il, :]
-        s = acc[..., 0]
-        for j in range(1, PAIRS_KT):
-            s = s + acc[..., j]
-        carry = carry + s
-    blocks = carry.sum(3).reshape(-1)
-    return blocks.sum()
-
-
 def gather_plan(a: int, reps: int) -> Dict[str, int]:
     """K10's grid: the units u = rep * a + lookup dealt to the grid's
     threads in GATHER_UNITS turns (thread g takes g + k * threads, k <
@@ -190,21 +132,6 @@ def gather_plan(a: int, reps: int) -> Dict[str, int]:
         raise ValueError(f"probe_gather_loop: {units} units overflow int32")
     blocks = _cdiv(units, GATHER_THREADS * GATHER_UNITS)
     return {"blocks": blocks, "threads": GATHER_THREADS, "units": units}
-
-
-def gather_partition(a: int, reps: int) -> Dict[str, np.ndarray]:
-    """The (lookup, repetition) of every unit a thread loads, with its
-    block, thread and turn, under gather_plan."""
-    plan = gather_plan(a, reps)
-    grid = plan["blocks"] * GATHER_THREADS
-    g, k = np.meshgrid(np.arange(grid), np.arange(GATHER_UNITS),
-                       indexing="ij")
-    u = (g + k * grid).reshape(-1)
-    g, k = g.reshape(-1), k.reshape(-1)
-    real = u < plan["units"]
-    u, g, k = u[real], g[real], k[real]
-    return {"block": g // GATHER_THREADS, "thread": g % GATHER_THREADS,
-            "turn": k, "lookup": u % a, "rep": u // a}
 
 
 # --------------------------------------------------------------------------
@@ -316,8 +243,8 @@ _SLOTS: Dict[torch.device, tuple] = {}
 
 
 def _slots(dev, blocks: int):
-    """The device's block slots of K9 and K10 (int64: a block's partial sum
-    and the number of the launch that wrote it) and a new launch number.
+    """The device's block slots (int64: a block's partial sum and the number
+    of the launch that wrote it), zeroed once, and a new launch number.
     Launches that share the slots run in the order of one stream."""
     buf, epoch = _SLOTS.get(dev, (None, 0))
     if buf is None or buf.numel() < blocks:
@@ -386,19 +313,19 @@ def _launch_mxu(tgt, g, reps):
                          f"{MXU_KMAX}]")
     _check(tgt, "tgt", (a, 1), torch.int32, dev)
     _check(g, "g", (kdim, ROW_WIDTH), torch.bfloat16, dev)
-    # one partial sum per warp: 4 warps per 64 rows and 64-column half
-    partial = torch.empty(a // 8, dtype=torch.float32, device=dev)
+    # one slot per block: 64 rows and one 64-column half
+    slots, epoch = _slots(dev, a // 32)
     out = torch.empty(1, dtype=torch.float32, device=dev)
     code = _cuda.probes_lib().gt_probe_mxu(
-        _p(tgt), _p(g), a, kdim, int(reps), _p(partial), _p(out), _stream())
+        _p(tgt), _p(g), a, kdim, int(reps), _p(slots), epoch, _p(out),
+        _stream())
     return _finish(code, "probe_mxu", out)
 
 
 class _Probe:
     """A probe's entry point: plain version on CPU tensors, the CUDA kernel
     on CUDA tensors.  `launches` counts kernel launches only,
-    LAUNCHES_PER_CALL[name] a call; `calls` counts the calls that
-    launched."""
+    LAUNCHES_PER_CALL a call; `calls` counts the calls that launched."""
 
     def __init__(self, name, plain, launch):
         self.name = name
@@ -417,7 +344,7 @@ class _Probe:
             raise ValueError(f"{self.name}: unsupported device "
                              f"{first.device}")
         out = self._launch(first, *args, **kw)
-        self.launches += LAUNCHES_PER_CALL[self.name]
+        self.launches += LAUNCHES_PER_CALL
         self.calls += 1
         return out
 

@@ -30,11 +30,21 @@ last source).  For each source whose K1 has a value-only mode it first
 prints whether those energies equal the value+gradient ones bit for bit.  The last source is also timed on a receptor above the
 shared-memory budget (a 34 A box, K=6,154: K3 and K1), and the card's name
 and power limit close the output, after a table of each row's median over
-the turns.  Imports no JAX.
+the turns.
+
+    python scripts/torch_kernel_ab.py --probes OLD/probes.cu NEW/probes.cu
+
+does the same for builds of csrc/probes.cu: K9 (f32, bf16), K10 and K11
+at the probes' default sizes (L=128, N=32, K=1280, 20 repetitions), each
+build through the same host path, whichever entry points it has (see
+build_probes), then for the last build K10 beside an empty kernel on its
+grid (the launch floor) at 128, 1,024 and 8,192 lanes.
+Imports no JAX.
 """
 
 import collections
 import ctypes
+import itertools
 import os
 import subprocess
 import sys
@@ -267,56 +277,69 @@ def value_only_is_exact(dev):
 
 
 def build_probes(sources, verbose=False):
-    """{source: (library, older entry points)} for builds of probes.cu."""
+    """{source: (library, kind of entry points)} for builds of probes.cu:
+    "old" (K9 and K10 size their own grids, then k_sum adds the partial
+    sums), "plan" (they take the grid; k_sum as before) or "slots" (each
+    probe one launch: its blocks' sums go to 8-byte slots tagged with the
+    launch's number, and block 0 adds them)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     libs = {}
     for src, so in compile_all(sources, verbose, "abp").items():
         lib = ctypes.CDLL(so)
-        old = not hasattr(lib, "gt_probe_empty")
-        if old:
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.gt_probe_pairs.argtypes = [vp, vp, vp, vp] + [ci] * 5 \
-                + [vp] * 3
-            lib.gt_probe_gather.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
-            lib.gt_probe_mxu.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
-            lib.gt_probe_error_string.argtypes = [ci]
-            lib.gt_probe_error_string.restype = ctypes.c_char_p
-        else:
+        with open(split_spec(src)[0]) as f:
+            text = f.read()
+        kind = ("old" if not hasattr(lib, "gt_probe_empty") else
+                "slots" if "unsigned epoch" in text else "plan")
+        if kind == "slots":
             _cuda._bind_probes(lib)
-        libs[src] = (lib, old)
+        else:
+            lib.gt_probe_pairs.argtypes = [vp] * 4 + [ci] * (
+                5 if kind == "old" else 9) + [vp] * 3
+            lib.gt_probe_gather.argtypes = [vp, vp, vp, ci, ci] + [ci] * (
+                kind == "plan") + [vp] * 3
+            lib.gt_probe_mxu.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+        libs[src] = (lib, kind)
     return libs
 
 
-def probe_rows(lib, old, x, reps):
-    """{row: (calls, callable)} for one build of probes.cu."""
+def probe_rows(lib, kind, x, reps):
+    """{row: (calls, callable)} for one build of probes.cu, each through
+    its C entry point with buffers made once: the same host path for every
+    build."""
     from gnina_tpu_torch import probes
 
     _cuda._LIBS["probes"] = lib
-    pa = (x["lig"], x["ligp"], x["rec"], x["recp"], reps)
-    if not old:
-        return {
-            "K9 f32": (10, lambda: probes.probe_pairs(*pa)),
-            "K9 bf16": (10, lambda: probes.probe_pairs(
-                *pa, dtype=torch.bfloat16)),
-            "K10": (20, lambda: probes.probe_gather_loop(
-                x["idx"], x["cells"], x["w"], reps)),
-            "K11": (10, lambda: probes.probe_mxu(x["tgt"], x["g"], reps))}
     p = probes._p
+    dev = x["lig"].device
     lanes, n, k = x["lig"].shape[1], x["ligp"].shape[1], x["rec"].shape[0]
     a = n * lanes
-    part = torch.empty(max(lanes, a), device=x["lig"].device)
-    out = torch.empty(1, device=x["lig"].device)
+    pl = probes.pairs_plan(lanes, n, k)
+    gp = probes.gather_plan(a, reps)
+    # the older entry points size their own grids
+    pair_grid = () if kind == "old" else (*pl["grid"], pl["atoms"])
+    gather_grid = () if kind == "old" else (gp["blocks"],)
+    part = torch.empty(max(lanes, a, pl["blocks"], gp["blocks"]), device=dev)
+    out = torch.empty(1, device=dev)
+    if kind == "slots":
+        slots = torch.zeros(part.numel(), dtype=torch.int64, device=dev)
+        epoch = itertools.count(1)
+        tail = lambda: (p(slots), next(epoch), p(out))  # noqa: E731
+    else:
+        tail = lambda: (p(part), p(out))  # noqa: E731
 
     def pairs(bf16):
         return lambda: lib.gt_probe_pairs(
             p(x["lig"]), p(x["ligp"]), p(x["rec"]), p(x["recp"]), lanes, n,
-            k, reps, bf16, p(part), p(out), probes._stream())
+            k, reps, bf16, *pair_grid, *tail(), probes._stream())
 
     return {
         "K9 f32": (10, pairs(0)), "K9 bf16": (10, pairs(1)),
         "K10": (20, lambda: lib.gt_probe_gather(
-            p(x["idx"]), p(x["cells"]), p(x["w"]), a, reps, p(part), p(out),
-            probes._stream())),
-        "K11": (10, lambda: probes.probe_mxu(x["tgt"], x["g"], reps))}
+            p(x["idx"]), p(x["cells"]), p(x["w"]), a, reps, *gather_grid,
+            *tail(), probes._stream())),
+        "K11": (10, lambda: lib.gt_probe_mxu(
+            p(x["tgt"]), p(x["g"]), a, x["g"].shape[0], reps, *tail(),
+            probes._stream()))}
 
 
 def main_probes(sources, verbose):
@@ -330,6 +353,11 @@ def main_probes(sources, verbose):
     x = probes.make_inputs(0, 128, 32, 1280, dev)
     got = collections.defaultdict(list)
     names = ("K9 f32", "K9 bf16", "K10", "K11")
+    for src in sources:
+        for name, (_, fn) in probe_rows(*libs[src], x, reps).items():
+            code = fn()
+            if isinstance(code, int) and code:
+                sys.exit(f"{src} {name}: CUDA error {code}")
     for src in sources + sources[::-1]:
         rows = probe_rows(*libs[src], x, reps)
         parts = []
@@ -348,11 +376,10 @@ def main_probes(sources, verbose):
         for name in names:
             print(name.ljust(10) + "".join(
                 f"{np.median(got[(s, name) + mode]):.4f}".rjust(12)
-                for s in sources) + "   " + " / ".join(
-                    os.path.basename(s) for s in sources))
-    lib, old = libs[sources[-1]]
+                for s in sources) + "   " + " / ".join(sources))
+    lib, kind = libs[sources[-1]]
     _cuda._LIBS["probes"] = lib
-    if not old:
+    if kind == "slots":         # the package's own entry points
         for lanes in (128, 1024, 8192):
             xl = probes.make_inputs(0, lanes, 32, 16, dev)
             a = 32 * lanes

@@ -531,8 +531,7 @@ def test_group_stop_in_lockstep_mc_kernel(system):
 def test_probe_kernels(card):
     """K9-K11 vs their plain versions at a small size: each checksum within
     2e-5 of the sum of the terms' magnitudes (2e-2 for bfloat16 pair
-    arithmetic); each call's launches (probes.LAUNCHES_PER_CALL) counted;
-    two calls equal."""
+    arithmetic); each call's launch counted; two calls equal."""
     from gnina_tpu_torch import probes
 
     lanes, n, k, reps = 64, 4, 256, 3
@@ -544,7 +543,7 @@ def test_probe_kernels(card):
         before = (probes.probe_pairs.launches, probes.probe_pairs.calls)
         got = float(probes.probe_pairs(*pa, dtype=dtype))
         assert (probes.probe_pairs.launches, probes.probe_pairs.calls) == (
-            before[0] + probes.LAUNCHES_PER_CALL["probe_pairs"], before[1] + 1)
+            before[0] + probes.LAUNCHES_PER_CALL, before[1] + 1)
         ref = float(probes.probe_pairs_plain(*pa, dtype=dtype))
         assert abs(got - ref) <= tol * mag
         assert got == float(probes.probe_pairs(*pa, dtype=dtype))
@@ -592,7 +591,8 @@ def test_probe_gather_ragged(card):
     reps = 3
     before = probes.probe_gather_loop.launches
     got = probes.probe_gather_loop(x["idx"], x["cells"], x["w"], reps)
-    assert probes.probe_gather_loop.launches == before + 1
+    assert probes.probe_gather_loop.launches == (
+        before + probes.LAUNCHES_PER_CALL)
     ref = probes.probe_gather_loop_plain(x["idx"], x["cells"], x["w"], reps)
     mag = reps * float((x["cells"][x["idx"].long(), :8] * x["w"]).abs().sum())
     assert abs(float(got) - float(ref)) <= 2e-5 * mag
