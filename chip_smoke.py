@@ -31,8 +31,15 @@ from --seed: heavy atoms at protein density on a jittered lattice around
 the ligand with a cavity carved at its centre, read through
 Receptor.from_file.
 
-A last phase traces one more dock_batch with torch.profiler and splits
-the card's busy time by kernel.
+Phase [7] traces one more dock_batch with torch.profiler and splits the
+card's busy time by kernel.  The last phase, [8], runs the general docking
+path (fused_search="off": search grids, the per-step MC, the stages on
+the exact energy; ordinary PyTorch, no kernel) on the same job at
+GENERAL_STEPS steps: the populate and dock times, every pose against the
+plain exact rescore and the box, a --scoring dkoes_scoring and a
+--user_grid job through cli.main, and the fused route against the
+general path over 3 seeds (ROADMAP item 16; the gap and
+scripts/quality_gate.py's bar are printed).
 
 Phases print one line each; any failed check exits non-zero.  The line
 before the last is the kernel table as JSON (`launches` counts kernel
@@ -79,6 +86,11 @@ OPS_PAIR_VALUE = 46
 OPS_PAIR_DERIV = 72
 
 LIGANDS, EXHAUSTIVENESS, MC_STEPS = 16, 8, 1024
+# phase [8]'s depth: the general path is a per-step loop of small torch
+# operations (about half a second a step at 128 lanes on an H100), so its
+# docks run 128 steps and its command-line jobs 32, not 1024 (PERF.md
+# section 4)
+GENERAL_STEPS, GENERAL_CLI_STEPS = 128, 32
 
 
 class Failure(Exception):
@@ -995,6 +1007,220 @@ def phase_cli(S, scorer_names):
           f"--randomize_only rc 0, 3 poses; an unknown flag returns 1",
           flush=True)
     return launches, coupled, walls
+
+
+def phase_general(seed, steps, cli_steps, seeds=3):
+    """[8] The general path (fused_search="off": search grids, the per-step
+    MC of mc_chunk, the stages on the exact energy; ordinary PyTorch, no
+    kernel) on the card, on the main job: 16 copies of the ligand x 8
+    chains in the 20 A box of the seed's synthetic receptor, `steps` MC
+    steps.  Times the populate and the dock, checks every pose (energy =
+    the plain exact rescore of its conf within 1e-3 kcal/mol, heavy atoms
+    in the box, finite), runs a --scoring dkoes_scoring and a --user_grid
+    job through cli.main (`cli_steps` steps, one ligand), and docks the job
+    under `seeds` seeds on both routes for the fused-against-general
+    quality comparison (scripts/quality_gate.py's bar, reported)."""
+    import re
+    import tempfile
+
+    import torch
+
+    from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch import cli
+    from gnina_tpu_torch.chem.ingest import box_from_center_size
+    from gnina_tpu_torch.constants import IS_HYDROGEN
+    from gnina_tpu_torch.docking import DockingEngine, DockSettings, \
+        exact_split
+    from gnina_tpu_torch.ops import cache_grid as cg
+    from gnina_tpu_torch.ops import fused_dock as fd
+    from gnina_tpu_torch.ops.energy import Box
+    from gnina_tpu_torch.types import Conf, pad_ligand, pad_receptor
+
+    rec, lig, center, size = fx.system(seed=seed, box=20.0)
+    ligs = [lig] * LIGANDS
+    lo, hi = box_from_center_size(center, size)
+    base = dict(cnn_scoring="none", num_mc_steps=steps,
+                exhaustiveness=EXHAUSTIVENESS)
+    gen = DockingEngine(DockSettings(fused_search="off", **base))
+    check(gen.device.type == "cuda", "the general engine is not on the card")
+    pop = []
+    real_pop = gen._populate_cache
+
+    def timed_pop(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_pop(*a, **kw)
+        torch.cuda.synchronize()
+        pop.append(time.perf_counter() - t0)
+        return out
+
+    gen._populate_cache = timed_pop
+    results, wall, cnt = counted_dock(fd, gen, rec, ligs, center, size,
+                                      seed=seed)
+    check(not any(cnt.launches.values()),
+          f"the general path launched kernels: {cnt.launches}")
+    grids = gen._grid_cache[2]
+    check(len(pop) == 1 and grids is not None
+          and tuple(grids.data.shape[1:]) == cg.grid_shape_for(lo, hi)
+          and grids.data.is_cuda, "the search grids were not populated once "
+          "on the card")
+    # every pose against the plain exact rescore of its conf
+    sf = gen.sf
+    ru = lambda x, k: max(-(-x // k) * k, k)
+    n, m = ru(lig.num_atoms, 8), ru(lig.num_nodes, 4)
+    pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                        margin=sf.cutoff)
+    dev = gen.device
+    rec_d = pad_receptor(pruned.coords, pruned.types, pruned.charges,
+                         ru(len(pruned.types), 128), device=dev)
+    lig_d = pad_ligand(lig, n, m, ru(len(lig.pairs), 32), device=dev)
+    efn = gen._make_efn(ru(int(lig.layer.max()), 4))
+    box = Box(lo=torch.as_tensor(lo, device=dev),
+              hi=torch.as_tensor(hi, device=dev))
+    heavy = ~IS_HYDROGEN[lig.types]
+    worst, n_poses = 0.0, 0
+    for res in results:
+        check(bool(res), "a ligand without poses")
+        tors = np.zeros((len(res), m - 1), np.float32)
+        for i, p in enumerate(res):
+            tors[i, :len(p.conf_torsions)] = p.conf_torsions
+        conf = Conf(*[torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                      for x in ([p.conf_position for p in res],
+                                [p.conf_orientation for p in res], tors)])
+        with torch.no_grad():
+            inter, _ = exact_split(efn, lig_d, rec_d, conf, box, 1e3,
+                                   [1000.0] * 3)
+        e_ref = gen._conf_independent(lig, inter.cpu().numpy())
+        for i, p in enumerate(res):
+            check(bool(np.isfinite(p.energy))
+                  and bool(np.isfinite(p.coords).all()), "non-finite pose")
+            worst = max(worst, abs(p.energy - float(e_ref[i])))
+            c = p.coords[heavy]
+            check(bool(((c >= lo - 1e-3) & (c <= hi + 1e-3)).all()),
+                  "a pose outside the box")
+        e = [p.energy for p in res]
+        check(e == sorted(e), "poses not sorted by energy")
+        n_poses += len(res)
+    check(worst <= 1e-3, f"pose energy vs the plain rescore: {worst}")
+    print(f"[8] general path (fused_search='off'), {LIGANDS} ligands x "
+          f"{EXHAUSTIVENESS} chains, {steps} steps, 20 A box: populate "
+          f"{pop[0]:.2f} s ({len(grids.type_gridded.nonzero())} types on "
+          f"{'x'.join(str(v) for v in grids.data.shape[1:])} points, "
+          f"K = {len(pruned.types)}), dock {wall:.2f} s wall with the "
+          f"populate ({(wall - pop[0]) / steps * 1e3:.1f} ms a step); "
+          f"{n_poses} poses, every energy the plain exact rescore within "
+          f"{worst:.2e} kcal/mol, every pose in the box; best "
+          f"{min(r[0].energy for r in results):.3f} kcal/mol; no kernel "
+          f"launched", flush=True)
+
+    # the command line: a dkoes_scoring job and a user-grid job
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_general_")
+    path = lambda name: os.path.join(tmp, name)
+    with open(path("rec.pdb"), "w") as f:
+        f.write(fx.receptor_pdb_text(fx.ligand_center(lig), seed))
+    with open(fx.LIGAND_SDF) as f:
+        first = f.read().split("$$$$\n")[0] + "$$$$\n"
+    with open(path("one.sdf"), "w") as f:
+        f.write(first)
+    # an AD4 map of 41^3 points 0.5 A apart around the ligand: a bowl
+    # centred there, x fastest
+    mc = fx.ligand_center(lig)
+    ax = (np.arange(41) - 20) * 0.5
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    bowl = 0.01 * (x * x + y * y + z * z) - 0.5
+    with open(path("bias.map"), "w") as f:
+        f.write("GRID_PARAMETER_FILE chip.gpf\nGRID_DATA_FILE chip.fld\n"
+                "MACROMOLECULE rec.pdbqt\nSPACING 0.5\nNELEMENTS 40 40 40\n"
+                f"CENTER {mc[0]:.3f} {mc[1]:.3f} {mc[2]:.3f}\n")
+        f.write("\n".join(f"{v:.4f}" for v in
+                          bowl.transpose(2, 1, 0).ravel()) + "\n")
+    calls = []
+    real_general = cli.DockingEngine._dock_general
+
+    def spy(self, *a, **kw):
+        calls.append(1)
+        return real_general(self, *a, **kw)
+
+    common = ["-r", path("rec.pdb"), "-l", path("one.sdf"), "--cnn_scoring",
+              "none", "--exhaustiveness", str(EXHAUSTIVENESS),
+              "--num_mc_steps", str(cli_steps), "--seed", str(seed), "-q"]
+    jobs = {"dkoes_scoring": ["--autobox_ligand", path("one.sdf"),
+                              "--scoring", "dkoes_scoring"],
+            "user_grid": ["--user_grid", path("bias.map")]}
+    walls = {}
+    try:
+        cli.DockingEngine._dock_general = spy
+        for name, flags in jobs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(common + flags + ["-o", path(f"{name}.sdf"),
+                                            "--log", path(f"{name}.log")])
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            with open(path(f"{name}.sdf")) as f:
+                text = f.read()
+            tags = [float(v) for v in re.findall(
+                r">  <minimizedAffinity>\n(\S+)", text)]
+            check(text.count("$$$$") == len(tags) >= 1
+                  and np.isfinite(tags).all(), f"cli.main {name}: poses")
+            if name == "user_grid":
+                # the map's box: 41 points 0.5 A apart from centre + 0.25
+                ulo, uhi = mc + 0.25 - 10.25, mc + 0.25 + 10.25
+                for blk in text.split("$$$$\n")[:len(tags)]:
+                    lines = blk.splitlines()
+                    na = int(lines[3][:3])
+                    atoms = [ln.split() for ln in lines[4:4 + na]]
+                    xyz = np.array([[float(v) for v in a[:3]] for a in atoms
+                                    if a[3] != "H"])
+                    check(bool(((xyz >= ulo - 1e-2)
+                                & (xyz <= uhi + 1e-2)).all()),
+                          "a user-grid pose outside the map's box")
+            walls[name] = (walls[name], len(tags), min(tags))
+    finally:
+        cli.DockingEngine._dock_general = real_general
+    check(len(calls) == len(jobs), f"cli.main took the general path "
+          f"{len(calls)} times for {len(jobs)} jobs")
+    print("[8] cli.main on the general path, 1 ligand x "
+          f"{EXHAUSTIVENESS} chains, {cli_steps} steps: " + "; ".join(
+              f"--{k} rc 0 in {w:.2f} s, {n} poses, best {b:.3f}"
+              for k, (w, n, b) in walls.items())
+          + " (the user-grid job in the map's box)", flush=True)
+
+    # item 16 on the card: the fused route against the general path
+    fused = DockingEngine(DockSettings(**base))
+    fused.dock_batch(rec, ligs, center, size, seed=seed)         # warm
+    means = {"fused": [], "general": [float(np.mean(
+        [r[0].energy for r in results]))]}
+    fwall, gwall = [], [wall]
+    for i in range(seeds):
+        t0 = time.perf_counter()
+        res = fused.dock_batch(rec, ligs, center, size, seed=seed + i)
+        torch.cuda.synchronize()
+        fwall.append(time.perf_counter() - t0)
+        means["fused"].append(float(np.mean([r[0].energy for r in res])))
+        if i:
+            t0 = time.perf_counter()
+            res = gen.dock_batch(rec, ligs, center, size, seed=seed + i)
+            torch.cuda.synchronize()
+            gwall.append(time.perf_counter() - t0)
+            means["general"].append(float(np.mean(
+                [r[0].energy for r in res])))
+    fm, gm = np.mean(means["fused"]), np.mean(means["general"])
+    spread = max(np.ptp(means["fused"]), np.ptp(means["general"]))
+    bar = max(spread, 0.25)
+    print(f"[8] quality (ROADMAP item 16) on that job, seeds {seed}-"
+          f"{seed + seeds - 1}: mean best fused {fm:.3f} "
+          f"{[round(v, 3) for v in means['fused']]} in "
+          f"{np.mean(fwall):.2f} s a dock, general {gm:.3f} "
+          f"{[round(v, 3) for v in means['general']]} in "
+          f"{np.mean(gwall):.2f} s a dock; gap fused - general "
+          f"{fm - gm:+.3f} kcal/mol against the bar max(seed spread, 0.25) "
+          f"= {bar:.3f} (scripts/quality_gate.py): "
+          f"{'within' if abs(fm - gm) <= bar else 'OUTSIDE'} the bar "
+          "(reported, not a check)", flush=True)
+    return dict(populate_s=pop[0], dock_s=wall, cli=walls, fused=means[
+        "fused"], general=means["general"], bar=bar)
 
 
 def read_counts(fd):
@@ -1936,6 +2162,9 @@ def main():
     else:
         print("[7] torch.profiler recorded no device activity: device busy "
               "share not measured", flush=True)
+
+    # ---- 8. the general path (no kernel) ----------------------------------
+    phase_general(args.seed, GENERAL_STEPS, GENERAL_CLI_STEPS)
 
     table = {"kernels": [dict(
         name=row["name"], route="cuda",

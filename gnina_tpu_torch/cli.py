@@ -39,7 +39,8 @@ from gnina_tpu_torch.chem import ingest
 from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.docking import DockingEngine, DockSettings
 from gnina_tpu_torch.output import write_poses_sdf
-from gnina_tpu_torch.scoring.builtin import get_scoring_function
+from gnina_tpu_torch.scoring.builtin import get_scoring_function, \
+    scoring_function_from_file
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -269,7 +270,6 @@ class Tee:
 
 # ROADMAP.md items of the modules still to port, by number
 _ITEMS = {
-    11: "Queue 1 item 11: general path",
     12: "Queue 1 item 12: flex and covalent",
     13: "Queue 1 item 13: CNN inside the search",
     14: "Queue 1 item 14: multi-GPU",
@@ -277,18 +277,10 @@ _ITEMS = {
 }
 
 
-def check_ported(args, scoring: str) -> None:
+def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose module is not ported yet,
     naming its ROADMAP.md item; nothing is silently ignored."""
-    from gnina_tpu_torch.scoring.builtin import builtin_names
-
     checks = [
-        (bool(args.custom_scoring), "--custom_scoring", 11),
-        (scoring not in builtin_names(), f"--scoring {scoring}", 11),
-        (bool(args.user_grid), "--user_grid", 11),
-        (args.user_grid_lambda != -1.0, "--user_grid_lambda", 11),
-        (args.simple_ascent, "--simple_ascent", 11),
-        (args.minimize_single_full, "--minimize_single_full", 11),
         (bool(args.flex), "--flex", 12),
         (bool(args.flexres), "--flexres", 12),
         (bool(args.flexdist_ligand) or args.flexdist > 0, "--flexdist", 12),
@@ -377,7 +369,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     args.dist_nprocs = args.dist_nprocs or int(
         os.environ.get("GNINA_TPU_NPROCS", "1"))
     scoring = args.scoring if args.scoring != "default" else "vina"
-    check_ported(args, scoring)
+    check_ported(args)
     dev = _torch_device(args.device if args.device is not None else device)
 
     # --minimize softens the defaults (main.cpp:1152-1166): forcecap 10,
@@ -445,12 +437,14 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         settings = dataclasses.replace(settings, **_env_knobs)
 
     sf = None
+    if args.custom_scoring:
+        sf = scoring_function_from_file(args.custom_scoring)
     if args.custom_atoms:
         # runtime atom-parameter table (main.cpp:546-600); overrides the
         # scoring function's own table (as the reference's global swap does)
         from gnina_tpu_torch.constants import table_from_custom_atoms
 
-        base_sf = get_scoring_function(scoring)
+        base_sf = sf if sf is not None else get_scoring_function(scoring)
         tbl = table_from_custom_atoms(
             args.custom_atoms, base_sf.table,
             warn=lambda m: log.write(m + "\n"))
@@ -468,7 +462,25 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                         rotations=args.cnn_rotations, seed=args.seed,
                         center=center, device=dev)
 
-    engine = DockingEngine(settings, sf=sf, cnn_scorer=cnn, device=dev)
+    user_grid = None
+    ug_box = None
+    if args.user_grid:
+        from gnina_tpu_torch.ops.user_grid import read_ad4_map
+
+        ug_scale = 1.0
+        if args.user_grid_lambda != -1.0:
+            ug_scale = 1.0 - args.user_grid_lambda
+            # scale all scoring-term weights by lambda (set_scaling_factor)
+            base = sf if sf is not None else get_scoring_function(scoring)
+            sf = dataclasses.replace(
+                base, pair_weights=tuple(w * args.user_grid_lambda
+                                         for w in base.pair_weights))
+        user_grid, ug_center, ug_size = read_ad4_map(
+            args.user_grid, scaling=ug_scale, device=dev)
+        ug_box = (ug_center, ug_size)
+
+    engine = DockingEngine(settings, sf=sf, cnn_scorer=cnn, device=dev,
+                           user_grid=user_grid)
     if args.verbosity >= 2:
         # MC search progress (the reference's parallel_progress bar)
         engine.progress = lambda msg: log.write(msg + "\n")
@@ -483,6 +495,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         center = np.array([args.center_x, args.center_y, args.center_z],
                           np.float32)
         size = np.array([args.size_x, args.size_y, args.size_z], np.float32)
+    elif ug_box is not None:
+        # the user grid defines the search box (setup_user_gd,
+        # main.cpp:1338-1342)
+        center, size = ug_box
 
     cnn_enabled = cnn is not None
 

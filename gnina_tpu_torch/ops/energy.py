@@ -11,6 +11,10 @@ pass.
 Energy-capping "v" semantics (model.cu:202-226):
   v[0] -> intra-ligand pairs, v[1] -> rec-lig interactions
 All capping via curl(); per movable atom for rec-lig, per pair for intra.
+
+The ligand's tensors may carry the confs' leading dimensions too
+(lane_ligands: one ligand per lane of a batch of ligands), as the general
+docking path runs several ligands' chains on one lane axis.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from gnina_tpu_torch.ops import fk
+from gnina_tpu_torch.ops.fk import rows
 from gnina_tpu_torch.scoring.terms import gather_type_params
 from gnina_tpu_torch.scoring.weighted import ScoringFunction, curl
 from gnina_tpu_torch.types import Conf, LigandData, ReceptorData
@@ -42,18 +47,54 @@ class EnergyFn:
     eval_inter: Callable      # (lig, rec, conf, box, slope, v1)
     eval_intra: Callable      # (lig, conf, v0)
     inter_on_coords: Callable  # (lig, rec, coords, box, slope, v1)
+    pairs_on_coords: Callable = None  # (lig, coords, v0, v2) -> intra
 
 
-def make_energy_fn(sf: ScoringFunction, max_layers: int) -> EnergyFn:
+def lane_ligands(ligs, lane_lig) -> LigandData:
+    """One LigandData whose tensors carry a leading lane dimension: lane i
+    holds ligand lane_lig[i] of `ligs` (padded to one shape).  The
+    conf-independent inputs are not per lane and are set to 0."""
+    out = []
+    for field, *vals in zip(LigandData._fields, *ligs):
+        if isinstance(vals[0], torch.Tensor):
+            out.append(torch.stack(vals)[lane_lig])
+        else:
+            out.append(0.0)
+    return LigandData(*out)
+
+
+def _gather_pairs(p, idx):
+    """Per-atom parameters p (..., N) at pair indices idx (P,) or (..., P)."""
+    if idx.dim() == 1:
+        return p[..., idx]
+    return torch.gather(p, -1, idx)
+
+
+def make_energy_fn(sf: ScoringFunction, max_layers: int,
+                   user_grid=None) -> EnergyFn:
     """Energy/gradient functions taking explicit (lig: LigandData,
     rec: ReceptorData, conf: Conf, box: Box, slope, v: (3,)); confs may
-    carry any leading batch shape."""
+    carry any leading batch shape.
+
+    user_grid: optional ops.user_grid.UserGrid, whose interpolated value is
+    added per movable atom BEFORE curl (non_cache.cpp:168-173)."""
     cutoff_sqr = sf.cutoff ** 2
+    # type parameters by the identity of the type tensor: gathering them
+    # reads the types on the host, once per tensor instead of once per
+    # evaluation (the tensor is held, so its id is not reused)
+    cache = {}
+
+    def params_of(types):
+        hit = cache.get(id(types))
+        if hit is None:
+            if len(cache) >= 16:
+                cache.clear()
+            hit = cache[id(types)] = (types, gather_type_params(
+                sf.table, types, types.device))
+        return hit[1]
 
     def _params(lig: LigandData, rec: ReceptorData):
-        dev = lig.types.device
-        return (gather_type_params(sf.table, lig.types, dev),
-                gather_type_params(sf.table, rec.types, dev))
+        return params_of(lig.types), params_of(rec.types)
 
     def inter_energy(lig, rec, coords, box: Box, slope, v1):
         """Receptor interaction per movable heavy atom + box penalty.
@@ -67,12 +108,17 @@ def make_energy_fn(sf: ScoringFunction, max_layers: int) -> EnergyFn:
         diff = adj[..., :, None, :] - rec.coords                  # (..., N, K, 3)
         r2 = torch.sum(diff * diff, dim=-1)
         r = torch.sqrt(torch.clamp(r2, min=1e-12))
-        pa = {k: v[:, None] for k, v in pl.items()}
+        pa = {k: v[..., :, None] for k, v in pl.items()}
         pb = {k: v[None, :] for k, v in pr.items()}
-        e_pair = sf.eval_pair(pa, pb, r, qa=lig.charges[:, None],
+        e_pair = sf.eval_pair(pa, pb, r, qa=lig.charges[..., :, None],
                               qb=rec.charges[None, :])
-        valid = (r2 < cutoff_sqr) & rec.mask[None, :] & lig.heavy_mask[:, None]
+        valid = ((r2 < cutoff_sqr) & rec.mask[None, :]
+                 & lig.heavy_mask[..., :, None])
         e_atom = torch.sum(torch.where(valid, e_pair, 0.0), dim=-1)
+        if user_grid is not None:
+            from gnina_tpu_torch.ops.user_grid import user_grid_atom_energy
+
+            e_atom = e_atom + user_grid_atom_energy(user_grid, adj, 0.0)
         e_atom = curl(e_atom, v1)
         e_atom = torch.where(lig.heavy_mask, e_atom + slope * oob, 0.0)
         return torch.sum(e_atom, dim=-1)
@@ -80,15 +126,15 @@ def make_energy_fn(sf: ScoringFunction, max_layers: int) -> EnergyFn:
     def intra_energy(lig, coords, v0):
         """Intra-ligand 1-4+ pair energy, curl per pair at v[0]
         (model.cu:22-36)."""
-        ca = coords[..., lig.pair_a, :]
-        cb = coords[..., lig.pair_b, :]
+        ca = rows(coords, lig.pair_a)
+        cb = rows(coords, lig.pair_b)
         r2 = torch.sum((ca - cb) ** 2, dim=-1)
         r = torch.sqrt(torch.clamp(r2, min=1e-12))
-        pl = gather_type_params(sf.table, lig.types, lig.types.device)
-        pa = {k: p[lig.pair_a] for k, p in pl.items()}
-        pb = {k: p[lig.pair_b] for k, p in pl.items()}
-        e = sf.eval_pair(pa, pb, r, qa=lig.charges[lig.pair_a],
-                         qb=lig.charges[lig.pair_b])
+        pl = params_of(lig.types)
+        pa = {k: _gather_pairs(p, lig.pair_a) for k, p in pl.items()}
+        pb = {k: _gather_pairs(p, lig.pair_b) for k, p in pl.items()}
+        e = sf.eval_pair(pa, pb, r, qa=_gather_pairs(lig.charges, lig.pair_a),
+                         qb=_gather_pairs(lig.charges, lig.pair_b))
         e = curl(e, v0)
         valid = (r2 < cutoff_sqr) & lig.pair_mask
         return torch.sum(torch.where(valid, e, 0.0), dim=-1)
@@ -117,6 +163,12 @@ def make_energy_fn(sf: ScoringFunction, max_layers: int) -> EnergyFn:
         coords = fk.fk_coords(lig, conf, max_layers)
         return intra_energy(lig, coords, v0)
 
+    def pairs_on_coords(lig, coords, v0, v2):
+        """Intra-ligand pairs at v[0]; the flex "other" pairs of the JAX
+        package (at v[2]) belong to flex docking, not ported."""
+        return intra_energy(lig, coords, v0)
+
     return EnergyFn(sf=sf, max_layers=max_layers, eval_energy=total_energy,
                     eval_deriv=eval_deriv, eval_inter=eval_inter,
-                    eval_intra=eval_intra, inter_on_coords=inter_energy)
+                    eval_intra=eval_intra, inter_on_coords=inter_energy,
+                    pairs_on_coords=pairs_on_coords)

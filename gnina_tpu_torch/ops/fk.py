@@ -16,10 +16,21 @@ from gnina_tpu_torch.ops import quat as Q
 from gnina_tpu_torch.types import Conf, LigandData
 
 
+def rows(x, idx):
+    """x (..., R, C) at rows idx: one index vector (R',) for every batch
+    entry, or per entry (..., R') when the ligand tensors carry the batch
+    dimensions too (ops.energy.lane_ligands)."""
+    if idx.dim() == 1:
+        return x[..., idx, :]
+    idx = idx.expand(x.shape[:-2] + idx.shape[-1:])
+    return torch.gather(x, -2, idx[..., None].expand(idx.shape + x.shape[-1:]))
+
+
 def fk_node_frames(lig: LigandData, conf: Conf, max_layers: int):
     """Per-node (origin (..., M, 3), quaternion (..., M, 4)) for confs with
-    any leading batch shape."""
-    m = lig.parent.shape[0]
+    any leading batch shape; the ligand's tensors may carry the same
+    leading dimensions (one ligand per pose)."""
+    m = lig.parent.shape[-1]
     batch = conf.position.shape[:-1]
     dev = conf.position.device
     row0 = torch.arange(m, device=dev) == 0
@@ -38,16 +49,18 @@ def fk_node_frames(lig: LigandData, conf: Conf, max_layers: int):
     sin_h = torch.sin(half)[..., None]
 
     parentc = torch.clamp(lig.parent, min=0)
-    is_root_child = (lig.parent < 0)[:, None]
+    is_root_child = (lig.parent < 0)[..., None]
     for layer in range(1, max_layers + 1):
-        p_origin = torch.where(is_root_child, 0.0, origins[..., parentc, :])
-        p_quat = torch.where(is_root_child, ident, quats[..., parentc, :])
-        new_origin = p_origin + Q.qrotate(p_quat, lig.rel_origin)
-        axis = Q.qrotate(p_quat, lig.rel_axis)
+        p_origin = torch.where(is_root_child, 0.0, rows(origins, parentc))
+        p_quat = torch.where(is_root_child, ident, rows(quats, parentc))
+        # qrotate twice with one rotation matrix (the same products)
+        p_rot = Q.quaternion_to_matrix(p_quat)
+        new_origin = p_origin + (p_rot * lig.rel_origin[..., None, :]).sum(-1)
+        axis = (p_rot * lig.rel_axis[..., None, :]).sum(-1)
         # angle_to_quaternion(axis, torsion) with axis unit-length
         tq = torch.cat([cos_h, sin_h * axis], dim=-1)
         new_quat = Q.qnormalize_approx(Q.qmul(tq, p_quat))
-        upd = (lig.layer == layer)[:, None]
+        upd = (lig.layer == layer)[..., None]
         origins = torch.where(upd, new_origin, origins)
         quats = torch.where(upd, new_quat, quats)
     return origins, quats
@@ -58,9 +71,9 @@ def fk_coords(lig: LigandData, conf: Conf, max_layers: int):
     their local_coords hold absolute positions."""
     origins, quats = fk_node_frames(lig, conf, max_layers)
     node = lig.node_id
-    moved = origins[..., node, :] + Q.qrotate(quats[..., node, :],
-                                              lig.local_coords)
-    return torch.where(lig.movable_mask[:, None], moved, lig.local_coords)
+    moved = rows(origins, node) + Q.qrotate(rows(quats, node),
+                                            lig.local_coords)
+    return torch.where(lig.movable_mask[..., None], moved, lig.local_coords)
 
 
 def conf_increment(conf: Conf, delta, factor) -> Conf:

@@ -14,6 +14,13 @@ Semantics mirrored from the reference:
   (monte_carlo.cpp:99-148)
 - RMSD-deduplicated top-N insert (coords.cpp:43-56) and the per-ligand
   merge of the chains' containers (parallel_mc.cpp:168-181)
+- the host-driven step loop (chain_steps): truncated minimisation at the
+  hunt caps, Metropolis on the inter-only energy at authentic v, the
+  promising/pending bookkeeping and the full-v refine of promising poses
+  (monte_carlo.cpp:44-47, 99-148); mc_chunk runs it on the general path's
+  energy functions (the BFGS of ops/bfgs.py over autograd energies, on
+  the search grids or analytic), mc_fused.fused_mc_chunk on the fused
+  minimisation kernels
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from gnina_tpu_torch.constants import EPSILON_FL, MAX_FL
 from gnina_tpu_torch.device import resolve_device
+from gnina_tpu_torch.ops.bfgs import MinimizeParams, bfgs
 from gnina_tpu_torch.ops.quat import quaternion_increment, random_orientation
 from gnina_tpu_torch.types import Conf
 
@@ -41,6 +49,9 @@ class MCParams:
     # promising pose of each lane is refined every `refine_stride` steps
     # (0 = never, rely on the final refine stages)
     refine_stride: int = 4
+    # the general path's minimiser (mc_chunk); the fused route's kernels
+    # carry their own
+    minparams: MinimizeParams = MinimizeParams()
 
 
 class PoseContainer(NamedTuple):
@@ -347,3 +358,160 @@ def mc_init(lanes: int, m: int, params: MCParams, corner1, corner2,
                                              device=device),
                    pending_is_current=torch.zeros(lanes, dtype=torch.bool,
                                                   device=device))
+
+
+def chain_steps(carry: MCCarry, generator: Optional[torch.Generator],
+                num_steps: int, minimize_hunt, minimize_full, heavy_mask,
+                gyr_mask, ntors, has_rigid, params: MCParams, tp: int,
+                draws=None) -> MCCarry:
+    """num_steps host-driven MC steps on the flat lane axis
+    (monte_carlo.cpp:99-148).
+
+    minimize_hunt / minimize_full (rigid, tors) -> (rigid', tors',
+    Metropolis energy (L,), coords (L, N, 3)) minimise every lane at the
+    hunt caps / at authentic v.  heavy_mask (L, N) marks the coordinate
+    rows the container keeps, gyr_mask (L, N) those of the gyration
+    radius.  Step i takes its random numbers from draws[i] = (mutation
+    draws, Metropolis uniforms (L,)) when supplied, else from
+    `generator`."""
+    from gnina_tpu_torch.ops.fused_dock import conf_to_packed, packed_to_conf
+
+    m = carry.tors.shape[1]
+    lanes = carry.e.shape[0]
+    dev = carry.e.device
+
+    def add(cont, rigid, tors, e, coords, valid):
+        return add_to_container(cont, rigid[:, 0:3], rigid[:, 3:7],
+                                tors[:, 1:1 + tp], e, coords, heavy_mask,
+                                params.min_rmsd, valid=valid)
+
+    def sel(mask, a, b):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    def step(carry: MCCarry, i: int) -> MCCarry:
+        if draws is not None:
+            md, u = draws[i]
+        else:
+            md = draw_mutation(generator, ntors, has_rigid, device=dev)
+            u = torch.rand(lanes, generator=generator, dtype=torch.float32,
+                           device=generator.device).to(dev)
+        gr = gyration_radius(carry.coords, carry.rigid[:, 0:3], gyr_mask)
+        cand = mutate_conf(packed_to_conf(carry.rigid, carry.tors, m - 1),
+                           gr, params.mutation_amplitude, ntors, has_rigid,
+                           draws=md)
+        crig, ctor = conf_to_packed(cand, m)
+        crig, ctor, cand_e, cand_coords = minimize_hunt(crig, ctor)
+
+        accept = metropolis_accept(carry.e, cand_e, params.temperature, u=u)
+        accept = accept | (carry.e >= MAX_FL)      # step 0 always accepts
+        rigid = sel(accept, crig, carry.rigid)
+        tors = sel(accept, ctor, carry.tors)
+        e = torch.where(accept, cand_e, carry.e)
+        coords = sel(accept, cand_coords, carry.coords)
+
+        # "promising" (monte_carlo.cpp:120-135): improved best, or the
+        # container not yet full; saved unrefined right away, refined at
+        # the next stride boundary
+        has_empty = torch.any(carry.cont.energy >= MAX_FL, dim=-1)
+        promising = accept & ((cand_e < carry.best_e) | has_empty)
+        cont = add(carry.cont, rigid, tors, e, coords, promising)
+        best_e = torch.where(promising & (e < carry.best_e), e, carry.best_e)
+        return MCCarry(
+            rigid=rigid, tors=tors, e=e, best_e=best_e, cont=cont,
+            coords=coords,
+            pending_rigid=sel(promising, rigid, carry.pending_rigid),
+            pending_tors=sel(promising, tors, carry.pending_tors),
+            pending_valid=carry.pending_valid | promising,
+            pending_is_current=torch.where(
+                promising, True, carry.pending_is_current & ~accept))
+
+    def refine_phase(carry: MCCarry) -> MCCarry:
+        """Full-v refinement of the pending promising poses (the in-loop
+        quasi_newton at authentic_v, monte_carlo.cpp:128).  When the
+        pending pose is still the chain head, the chain continues from the
+        refined conf."""
+        rrig, rtor, re, rcoords = minimize_full(carry.pending_rigid,
+                                                carry.pending_tors)
+        do = carry.pending_valid
+        cont = add(carry.cont, rrig, rtor, re, rcoords, do)
+        best_e = torch.where(do & (re < carry.best_e), re, carry.best_e)
+        move = do & carry.pending_is_current
+        return carry._replace(
+            rigid=sel(move, rrig, carry.rigid),
+            tors=sel(move, rtor, carry.tors),
+            e=torch.where(move, re, carry.e), best_e=best_e, cont=cont,
+            coords=sel(move, rcoords, carry.coords),
+            pending_valid=torch.zeros_like(carry.pending_valid),
+            pending_is_current=torch.zeros_like(carry.pending_is_current))
+
+    stride = params.refine_stride
+    refine = bool(stride) and stride > 0 and num_steps >= stride
+    for i in range(num_steps):
+        carry = step(carry, i)
+        if refine and i % stride == stride - 1:
+            carry = refine_phase(carry)
+    return carry
+
+
+def mc_chunk(carry: MCCarry, generator: Optional[torch.Generator],
+             num_steps: int, lig, energy_fn, params: MCParams,
+             max_layers: int, dof_mask, num_real_torsions,
+             has_rigid_dof=True, draws=None) -> MCCarry:
+    """num_steps MC steps of every lane from a carried state, on the
+    general path (monte_carlo.cpp:99-148).
+
+    lig: a LigandData whose tensors carry the lane dimension
+    (energy.lane_ligands); dof_mask (L, D); num_real_torsions (L,);
+    has_rigid_dof (L,).  energy_fn contract, over a lane batch of confs:
+      eval_deriv(conf, v) -> (e, g) for the BFGS;
+      metro_on_coords(coords) -> Metropolis / update energy at authentic v
+        (the search grid's inter-only energy, parallel_mc.cpp:161-162);
+      eval_energy(conf, v) -> forward-only energy (line-search trials).
+    The chain's coordinates are every atom's (L, N, 3)."""
+    from gnina_tpu_torch.ops import fk
+    from gnina_tpu_torch.ops.fused_dock import conf_to_packed, packed_to_conf
+
+    eval_deriv = energy_fn["eval_deriv"]
+    metro_on_coords = energy_fn["metro_on_coords"]
+    eval_energy = energy_fn.get("eval_energy")
+    m = carry.tors.shape[1]
+
+    def minimizer(v):
+        def run(rigid, tors):
+            res = bfgs(lambda c: eval_deriv(c, v),
+                       packed_to_conf(rigid, tors, m - 1), params.minparams,
+                       dof_mask,
+                       f_val=(lambda c: eval_energy(c, v))
+                       if eval_energy else None)
+            with torch.no_grad():
+                coords = fk.fk_coords(lig, res.x, max_layers)
+                e = metro_on_coords(coords)
+            r, t = conf_to_packed(res.x, m)
+            return r, t, e, coords
+        return run
+
+    return chain_steps(carry, generator, num_steps,
+                       minimizer(list(params.hunt_cap)),
+                       minimizer([1000.0, 1000.0, 1000.0]), lig.heavy_mask,
+                       lig.lig_heavy_mask, num_real_torsions, has_rigid_dof,
+                       params, m - 1, draws=draws)
+
+
+def run_mc_chain(generator: torch.Generator, num_steps: int, lig,
+                 energy_fn, params: MCParams, corner1, corner2,
+                 max_layers: int, dof_mask, num_real_torsions,
+                 has_rigid_dof=True) -> PoseContainer:
+    """Whole MC chains of every lane in one call (init + all steps); the
+    chunked mc_init / mc_chunk pair is the docking engine's."""
+    from gnina_tpu_torch.ops import fk
+    from gnina_tpu_torch.ops.fused_dock import packed_to_conf
+
+    lanes, n = lig.types.shape
+    m = lig.parent.shape[-1]
+    carry = mc_init(lanes, m, params, corner1, corner2, n, generator,
+                    lambda r, t: fk.fk_coords(lig, packed_to_conf(r, t, m - 1),
+                                              max_layers),
+                    device=lig.types.device)
+    final = mc_chunk(carry, generator, num_steps, lig, energy_fn, params,
+                     max_layers, dof_mask, num_real_torsions, has_rigid_dof)
+    return final.cont

@@ -5,25 +5,32 @@
 
 Docks the job of tests/test_torch_dock.py (two copies of the minout.sdf
 ligand in a 12 A box of the seed-0 synthetic receptor of an 18 A cube,
-SETTINGS: no CNN, num_mc_saved 9) on three routes, for each seed:
+SETTINGS: no CNN, num_mc_saved 9) on four routes, for each seed:
 
-  port       gnina_tpu_torch's DockingEngine.dock_batch on the CPU (the
-             kernels' plain versions, the fused route)
-  jax_off    the JAX package with fused_search="off" (its general XLA path)
-  jax_fused  the JAX package with fused_search="on": the Pallas kernel in
-             interpret mode, the route the JAX package takes on a TPU
+  port          gnina_tpu_torch's DockingEngine.dock_batch on the CPU (the
+                kernels' plain versions, the fused route)
+  port_general  the same with fused_search="off" (the port's general path)
+  jax_off       the JAX package with fused_search="off" (its general XLA
+                path)
+  jax_fused     the JAX package with fused_search="on": the Pallas kernel
+                in interpret mode, whose TPU PRNG draws only zeros on the
+                CPU (tests/test_torch_interpret_draws.py), so every MC step
+                nudges the position the same way and is accepted: no
+                search, and nothing of the route the JAX package takes on
+                a TPU
 
 `--steps` and `--chains` set num_mc_steps and exhaustiveness (the test's
 64 and 4); the same job runs on all three routes and is written into the
 JSON.  A seed's best is the mean over the two ligands of each ligand's top
 pose energy (kcal/mol), as the test takes it.  The JSON holds per route the
 per-seed bests, their mean, spread (max - min) and the wall of each run,
-and per JAX route the port's mean difference over every seed and over the
-first three, each with the bar of scripts/quality_gate.py (max(seed
-spread, 0.25)) over the same seeds and the number of seeds of the mean's
-sign.  A run whose seeds are all in the JSON only rewrites the summary.  Each (route, seed) runs
-in its own process, `--jobs` at once; the JSON is rewritten after every
-run, so an interrupted sweep keeps what finished.
+and for each pair of GAPS the first route's mean difference to the second
+over every seed and over the first three, each with the bar of
+scripts/quality_gate.py (max(seed spread, 0.25)) over the same seeds and
+the number of seeds of the mean's sign.  A run whose seeds are all in
+the JSON only rewrites the summary.  Each (route, seed) runs in its own
+process, `--jobs` at once; the JSON is rewritten after every run, so an
+interrupted sweep keeps what finished.
 """
 
 from __future__ import annotations
@@ -43,7 +50,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-ROUTES = ("port", "jax_off", "jax_fused")
+ROUTES = ("port", "port_general", "jax_off", "jax_fused")
+GAPS = (("port", "jax_off"), ("port", "jax_fused"),
+        ("port_general", "jax_off"), ("port", "port_general"))
+LABELS = {
+    "port": "the port's fused route (kernels' plain versions)",
+    "port_general": "the port's general path (fused_search='off')",
+    "jax_off": "the JAX package's general XLA path (fused_search='off')",
+    "jax_fused": "the JAX package's fused route in Pallas interpret mode, "
+                 "whose TPU PRNG draws only zeros on the CPU: no search, not "
+                 "the route the JAX package takes on a TPU",
+}
 BOX = 12.0
 CUBE = 18.0
 BAR = 0.25      # kcal/mol, scripts/quality_gate.py's floor of the gap bar
@@ -69,11 +86,13 @@ def dock_one(route: str, seed: int, steps: int, chains: int,
     size = np.full(3, BOX, np.float32)
     settings = _job(steps, chains)
     t0 = time.perf_counter()
-    if route == "port":
+    if route.startswith("port"):
         from gnina_tpu_torch.docking import DockingEngine, DockSettings
 
         rec = tingest.Receptor.from_file(rec_path)
         lig = fx.ligand()
+        if route == "port_general":
+            settings["fused_search"] = "off"
         eng = DockingEngine(DockSettings(**settings), device="cpu")
         res = eng.dock_batch(rec, [lig, lig], center, size, seed=seed)
     else:
@@ -120,16 +139,14 @@ def summarise(out: dict) -> None:
             out["routes"][route].update(
                 mean=float(b.mean()), spread=float(b.max() - b.min()),
                 sd=float(b.std(ddof=1)) if len(b) > 1 else None)
-    port = out["routes"]["port"]
-    for route in ("jax_off", "jax_fused"):
-        ref = out["routes"][route]
-        both = sorted(set(port["per_seed"]) & set(ref["per_seed"]), key=int)
+    for a, b in GAPS:
+        one, ref = out["routes"][a], out["routes"][b]
+        both = sorted(set(one["per_seed"]) & set(ref["per_seed"]), key=int)
         if not both:
             continue
-        out[f"port_minus_{route}"] = gap(port["per_seed"], ref["per_seed"],
-                                         both)
-        out[f"port_minus_{route}_first_3"] = gap(
-            port["per_seed"], ref["per_seed"], both[:3])
+        out[f"{a}_minus_{b}"] = gap(one["per_seed"], ref["per_seed"], both)
+        out[f"{a}_minus_{b}_first_3"] = gap(one["per_seed"],
+                                            ref["per_seed"], both[:3])
 
 
 def main(argv=None) -> int:
@@ -157,6 +174,7 @@ def main(argv=None) -> int:
                        settings=_job(args.steps, args.chains)),
            "device": "cpu", "best": "mean over the 2 ligands of the top "
            "pose energy, kcal/mol",
+           "labels": LABELS,
            "routes": {r: {"per_seed": {}} for r in ROUTES}}
     if os.path.exists(args.out):       # keep runs of an earlier sweep
         with open(args.out) as f:
@@ -164,7 +182,7 @@ def main(argv=None) -> int:
         if old.get("job") == out["job"]:
             for r in ROUTES:
                 out["routes"][r]["per_seed"].update(
-                    old["routes"][r]["per_seed"])
+                    old["routes"].get(r, {}).get("per_seed", {}))
     tasks = [(r, s) for r in routes for s in seeds
              if str(s) not in out["routes"][r]["per_seed"]]
     ctx = multiprocessing.get_context("spawn")
@@ -184,8 +202,8 @@ def main(argv=None) -> int:
     summarise(out)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
-    for route in ("jax_off", "jax_fused"):
-        for key in (f"port_minus_{route}", f"port_minus_{route}_first_3"):
+    for a, b in GAPS:
+        for key in (f"{a}_minus_{b}", f"{a}_minus_{b}_first_3"):
             if key in out:
                 print(key, json.dumps(out[key]), flush=True)
     return 0

@@ -328,10 +328,10 @@ def test_errors_return_one(files, capsys):
     assert "ERROR: no ligands could be read" in capsys.readouterr().out
 
 
+# the general path's flags (--custom_scoring, --scoring dkoes*|ad4_scoring,
+# --user_grid[_lambda], --simple_ascent, --minimize_single_full) are ported:
+# test_torch_cli_general.py
 UNPORTED = [
-    (["--custom_scoring", "x.txt"], 11), (["--scoring", "ad4_scoring"], 11),
-    (["--scoring", "dkoes_scoring"], 11), (["--user_grid", "g.map"], 11),
-    (["--simple_ascent"], 11), (["--minimize_single_full"], 11),
     (["--flex", "f.pdbqt"], 12), (["--flexres", "A:1"], 12),
     (["--flexdist", "3", "--flexdist_ligand", "l.sdf"], 12),
     (["--no_lig"], 12), (["--out_flex", "f.pdb"], 12),

@@ -228,7 +228,10 @@ _PORTED = {"cnn_rescore": dict(cnn_scoring="rescore"),
            "lockstep_mc": dict(fused_async_mc=False),
            "async_ls": dict(fused_async_ls=True),
            "warm_ls": dict(fused_warm_ls=True),
-           "done_frac": dict(fused_done_frac=0.9)}
+           "done_frac": dict(fused_done_frac=0.9),
+           # the general path: fused_search="off" and non-vina terms
+           "fused_search_off": dict(fused_search="off"),
+           "non_vina_terms": {}}
 
 
 @pytest.mark.parametrize("case", [
@@ -241,14 +244,16 @@ def test_jobs_outside_the_fused_route_raise(system, case):
     another route's settings.  The cases since ported (the CNN rescore and
     sort orders, which without a scorer mean no CNN as in the JAX engine;
     lockstep MC; the async and warm line searches; the done_frac group
-    stop) no longer raise: they dock and score."""
+    stop; fused_search="off" and non-vina terms, on the general path) no
+    longer raise: they dock and score."""
     settings = dict(SETTINGS)
     sf = None
     lig = system["lig"]
     match = "ROADMAP.md"
     if case in _PORTED:
         settings.update(num_mc_steps=16, exhaustiveness=1, **_PORTED[case])
-        eng = DockingEngine(DockSettings(**settings), device="cpu")
+        sf = _vdw_sf() if case == "non_vina_terms" else None
+        eng = DockingEngine(DockSettings(**settings), sf=sf, device="cpu")
         res = eng.dock_batch(system["rec"], [lig], system["center"],
                              system["size"], seed=0)[0]
         assert res and all(p.cnnscore == 0.0 for p in res)
@@ -260,15 +265,11 @@ def test_jobs_outside_the_fused_route_raise(system, case):
             assert e == sorted(e)
         assert np.isfinite(eng.score_only(system["rec"], lig).energy)
         return
-    if case == "fused_search_off":
-        settings["fused_search"] = "off"
-    elif case == "canonical_shapes":
+    if case == "canonical_shapes":
         settings["canonical_shapes"] = True
         match = "canonical_shapes"
     elif case == "cnn_in_loop":
         settings["cnn_scoring"] = "all"
-    elif case == "non_vina_terms":
-        sf = _vdw_sf()
     elif case == "flex":
         lig = dataclasses.replace(lig, num_lig_atoms=lig.num_atoms - 2)
     elif case == "covalent":

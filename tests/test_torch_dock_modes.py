@@ -67,9 +67,9 @@ def test_default_settings_dock_without_a_scorer(system):
     import inspect
 
     assert list(inspect.signature(DockingEngine.__init__).parameters) == [
-        "self", "settings", "sf", "cnn_scorer", "device"]
-    assert list(inspect.signature(JEngine.__init__).parameters)[:4] == [
-        "self", "settings", "sf", "cnn_scorer"]
+        "self", "settings", "sf", "cnn_scorer", "device", "user_grid"]
+    assert list(inspect.signature(JEngine.__init__).parameters) == [
+        "self", "settings", "sf", "cnn_scorer", "user_grid"]
     eng = DockingEngine(DockSettings(), device="cpu")
     assert eng.cnn is None and eng.settings.cnn_scoring == "rescore"
     eng.settings = dataclasses.replace(eng.settings, max_mc_steps=16,
