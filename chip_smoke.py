@@ -35,8 +35,8 @@ Phase [7] traces one more dock_batch with torch.profiler and splits the
 card's busy time by kernel.  The last phase, [8], runs the general docking
 path (fused_search="off": search grids, the per-step MC, the stages on
 the exact energy; ordinary PyTorch, no kernel) on the same job at
-GENERAL_STEPS steps: the populate and dock times, every pose against the
-plain exact rescore and the box, a --scoring dkoes_scoring and a
+GENERAL_STEPS steps: the populate and dock times, every pose against
+the engine's and K1's exact rescores and the box, a --scoring dkoes_scoring and a
 --user_grid job through cli.main, and the fused route against the
 general path over 3 seeds (ROADMAP item 16; the gap and
 scripts/quality_gate.py's bar are printed).
@@ -1015,11 +1015,13 @@ def phase_general(seed, steps, cli_steps, seeds=3):
     kernel) on the card, on the main job: 16 copies of the ligand x 8
     chains in the 20 A box of the seed's synthetic receptor, `steps` MC
     steps.  Times the populate and the dock, checks every pose (energy =
-    the plain exact rescore of its conf within 1e-3 kcal/mol, heavy atoms
-    in the box, finite), runs a --scoring dkoes_scoring and a --user_grid
-    job through cli.main (`cli_steps` steps, one ligand), and docks the job
-    under `seeds` seeds on both routes for the fused-against-general
-    quality comparison (scripts/quality_gate.py's bar, reported)."""
+    the engine's exact rescore of its conf within 1e-3 kcal/mol, and K1's,
+    an energy code of its own, within 1e-3 plus 0.005 per pair at the
+    cutoff; heavy atoms in the box; finite), runs a --scoring
+    dkoes_scoring and a --user_grid job through cli.main (`cli_steps`
+    steps, one ligand), and docks the job under `seeds` seeds on both
+    routes for the fused-against-general quality comparison
+    (scripts/quality_gate.py's bar, reported)."""
     import re
     import tempfile
 
@@ -1043,7 +1045,7 @@ def phase_general(seed, steps, cli_steps, seeds=3):
                 exhaustiveness=EXHAUSTIVENESS)
     gen = DockingEngine(DockSettings(fused_search="off", **base))
     check(gen.device.type == "cuda", "the general engine is not on the card")
-    pop = []
+    pop, made = [], []
     real_pop = gen._populate_cache
 
     def timed_pop(*a, **kw):
@@ -1052,6 +1054,7 @@ def phase_general(seed, steps, cli_steps, seeds=3):
         out = real_pop(*a, **kw)
         torch.cuda.synchronize()
         pop.append(time.perf_counter() - t0)
+        made.append(out)
         return out
 
     gen._populate_cache = timed_pop
@@ -1059,26 +1062,32 @@ def phase_general(seed, steps, cli_steps, seeds=3):
                                       seed=seed)
     check(not any(cnt.launches.values()),
           f"the general path launched kernels: {cnt.launches}")
-    grids = gen._grid_cache[2]
+    gen._populate_cache = real_pop
+    grids = made[0] if made else None
     check(len(pop) == 1 and grids is not None
           and tuple(grids.data.shape[1:]) == cg.grid_shape_for(lo, hi)
           and grids.data.is_cuda, "the search grids were not populated once "
           "on the card")
-    # every pose against the plain exact rescore of its conf
+    # every pose against the engine's exact rescore of its conf (the
+    # assembly, within 1e-3 kcal/mol) and against K1's (the fused route's
+    # rescore on a one-lane-a-pose pack, an energy code of its own), within
+    # 1e-3 plus 0.005 per atom pair within 2e-3 A^2 of the cutoff as in
+    # [5]; these K1 launches follow the counted run
     sf = gen.sf
+    dev = gen.device
     ru = lambda x, k: max(-(-x // k) * k, k)
     n, m = ru(lig.num_atoms, 8), ru(lig.num_nodes, 4)
     pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
                         margin=sf.cutoff)
-    dev = gen.device
     rec_d = pad_receptor(pruned.coords, pruned.types, pruned.charges,
                          ru(len(pruned.types), 128), device=dev)
     lig_d = pad_ligand(lig, n, m, ru(len(lig.pairs), 32), device=dev)
     efn = gen._make_efn(ru(int(lig.layer.max()), 4))
     box = Box(lo=torch.as_tensor(lo, device=dev),
               hi=torch.as_tensor(hi, device=dev))
+    rc = np.asarray(pruned.coords, np.float64)
     heavy = ~IS_HYDROGEN[lig.types]
-    worst, n_poses = 0.0, 0
+    worst, k1_worst, k1_band, n_band, n_poses = 0.0, 0.0, 0.0, 0, 0
     for res in results:
         check(bool(res), "a ligand without poses")
         tors = np.zeros((len(res), m - 1), np.float32)
@@ -1090,26 +1099,45 @@ def phase_general(seed, steps, cli_steps, seeds=3):
         with torch.no_grad():
             inter, _ = exact_split(efn, lig_d, rec_d, conf, box, 1e3,
                                    [1000.0] * 3)
-        e_ref = gen._conf_independent(lig, inter.cpu().numpy())
+        e_own = gen._conf_independent(lig, inter.cpu().numpy())
+        pack = fd.build_pack([lig], pruned.coords, pruned.types,
+                             np.ones(len(pruned.types), np.float32),
+                             len(res), sf.table, m_pad=m, device=dev)
+        rigid, ptors = fd.conf_to_packed(conf, m)
+        inter, _ = gen._exact_energies(rigid, ptors, pack, lo, hi, 1e3)
+        e_k1 = gen._conf_independent(lig, inter)
         for i, p in enumerate(res):
             check(bool(np.isfinite(p.energy))
                   and bool(np.isfinite(p.coords).all()), "non-finite pose")
-            worst = max(worst, abs(p.energy - float(e_ref[i])))
+            worst = max(worst, abs(p.energy - float(e_own[i])))
+            c = np.clip(np.asarray(p.coords, np.float64)[heavy], lo, hi)
+            d2 = ((c[:, None] - rc[None]) ** 2).sum(-1)
+            band = int((np.abs(d2 - sf.cutoff ** 2) < 2e-3).sum())
+            de = abs(p.energy - float(e_k1[i]))
+            check(de <= 1e-3 + 0.005 * band, f"pose energy {p.energy} vs "
+                  f"K1's rescore {e_k1[i]} ({band} pairs at the cutoff)")
+            if band:
+                n_band += 1
+                k1_band = max(k1_band, de)
+            else:
+                k1_worst = max(k1_worst, de)
             c = p.coords[heavy]
             check(bool(((c >= lo - 1e-3) & (c <= hi + 1e-3)).all()),
                   "a pose outside the box")
         e = [p.energy for p in res]
         check(e == sorted(e), "poses not sorted by energy")
         n_poses += len(res)
-    check(worst <= 1e-3, f"pose energy vs the plain rescore: {worst}")
+    check(worst <= 1e-3, f"pose energy vs the engine's rescore: {worst}")
     print(f"[8] general path (fused_search='off'), {LIGANDS} ligands x "
           f"{EXHAUSTIVENESS} chains, {steps} steps, 20 A box: populate "
           f"{pop[0]:.2f} s ({len(grids.type_gridded.nonzero())} types on "
           f"{'x'.join(str(v) for v in grids.data.shape[1:])} points, "
           f"K = {len(pruned.types)}), dock {wall:.2f} s wall with the "
           f"populate ({(wall - pop[0]) / steps * 1e3:.1f} ms a step); "
-          f"{n_poses} poses, every energy the plain exact rescore within "
-          f"{worst:.2e} kcal/mol, every pose in the box; best "
+          f"{n_poses} poses, every energy the engine's exact rescore "
+          f"within {worst:.2e} kcal/mol and K1's within {k1_worst:.2e} "
+          f"({k1_band:.2e} on the {n_band} poses with a pair within 2e-3 "
+          f"A^2 of the cutoff), every pose in the box; best "
           f"{min(r[0].energy for r in results):.3f} kcal/mol; no kernel "
           f"launched", flush=True)
 

@@ -59,17 +59,19 @@ def _make_cells(data: torch.Tensor) -> torch.Tensor:
 
 
 def grid_shape_for(lo: np.ndarray, hi: np.ndarray) -> Tuple[int, int, int]:
-    """Static padded point counts per axis for a search box."""
-    span = np.asarray(hi) - np.asarray(lo)
-    n = np.ceil(span / GRANULARITY).astype(int) + 1
-    return tuple(int(((v + 7) // 8) * 8) for v in n)
+    """Point counts per axis for a search box, ceil(span / GRANULARITY) + 1
+    in float32 (the JAX package's dims_minus_1 + 1; it pads each count to
+    a multiple of 8 for static shapes, points that are never read)."""
+    span = np.asarray(hi, np.float32) - np.asarray(lo, np.float32)
+    return tuple(int(v) + 1 for v in np.ceil(span / np.float32(GRANULARITY)))
 
 
 def make_populate_fn(sf: ScoringFunction, npts: Tuple[int, int, int],
                      num_slots: int, charge_terms: bool):
     """populate(rec, lo, hi, slot_types, slot_of_type, type_gridded) ->
-    CacheGrids, on the receptor's device.  The gridded types fill the
-    first slots in order; the slots after them are never read and stay 0
+    CacheGrids, on the receptor's device, npts points from lo (hi is
+    the JAX signature's; npts fixes the extent).  The gridded types fill
+    the first slots in order; the slots after them are never read and stay 0
     (the JAX package fills them with type 0's grid)."""
     cutoff_sqr = sf.cutoff ** 2
     nx, ny, nz = npts
@@ -77,7 +79,6 @@ def make_populate_fn(sf: ScoringFunction, npts: Tuple[int, int, int],
     def populate(rec, lo, hi, slot_types, slot_of_type, type_gridded):
         dev = rec.coords.device
         lo = torch.tensor(np.asarray(lo, np.float32), device=dev)
-        hi = torch.tensor(np.asarray(hi, np.float32), device=dev)
         pr = gather_type_params(sf.table, rec.types, dev)
         ns = int(np.asarray(type_gridded).sum())          # slots in use
         pslot = gather_type_params(sf.table, slot_types[:ns], dev)
@@ -126,7 +127,8 @@ def make_populate_fn(sf: ScoringFunction, npts: Tuple[int, int, int],
                                          device=dev),
             type_gridded=torch.as_tensor(type_gridded, dtype=torch.bool,
                                          device=dev),
-            origin=lo, dims_minus_1=torch.ceil((hi - lo) / GRANULARITY),
+            origin=lo, dims_minus_1=torch.tensor(
+                [float(c - 1) for c in npts], device=dev),
             cells=_make_cells(data), ccells=ccells)
 
     return populate

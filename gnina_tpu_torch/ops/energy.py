@@ -26,7 +26,7 @@ import torch
 
 from gnina_tpu_torch.ops import fk
 from gnina_tpu_torch.ops.fk import rows
-from gnina_tpu_torch.scoring.terms import gather_type_params
+from gnina_tpu_torch.scoring.terms import type_param_tables
 from gnina_tpu_torch.scoring.weighted import ScoringFunction, curl
 from gnina_tpu_torch.types import Conf, LigandData, ReceptorData
 
@@ -79,19 +79,16 @@ def make_energy_fn(sf: ScoringFunction, max_layers: int,
     user_grid: optional ops.user_grid.UserGrid, whose interpolated value is
     added per movable atom BEFORE curl (non_cache.cpp:168-173)."""
     cutoff_sqr = sf.cutoff ** 2
-    # type parameters by the identity of the type tensor: gathering them
-    # reads the types on the host, once per tensor instead of once per
-    # evaluation (the tensor is held, so its id is not reused)
-    cache = {}
+    tables = {}   # the per-type parameter tables, one set a device
 
     def params_of(types):
-        hit = cache.get(id(types))
-        if hit is None:
-            if len(cache) >= 16:
-                cache.clear()
-            hit = cache[id(types)] = (types, gather_type_params(
-                sf.table, types, types.device))
-        return hit[1]
+        """Per-atom parameters of a type tensor, gathered on its device."""
+        tab = tables.get(types.device)
+        if tab is None:
+            tab = tables[types.device] = type_param_tables(sf.table,
+                                                           types.device)
+        idx = types.long()
+        return {k: v[idx] for k, v in tab.items()}
 
     def _params(lig: LigandData, rec: ReceptorData):
         return params_of(lig.types), params_of(rec.types)

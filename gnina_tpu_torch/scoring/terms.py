@@ -43,6 +43,12 @@ def gather_type_params(table: AtomTypeTable, types, device=None):
     }
 
 
+def type_param_tables(table: AtomTypeTable, device=None):
+    """gather_type_params of every type id: (types,) tensors that a type
+    tensor indexes on its own device, with no host read."""
+    return gather_type_params(table, np.arange(len(table.xs_radius)), device)
+
+
 def slope_step(x_bad, x_good, x):
     """Linear interpolant that is 0 at x_bad, 1 at x_good, clipped outside.
 

@@ -331,12 +331,17 @@ def test_populate_matches_jax(which, grids_vina, grids_ad4):
     for f in ("slot_of_type", "type_gridded", "origin", "dims_minus_1"):
         np.testing.assert_array_equal(getattr(t, f).numpy(),
                                       np.asarray(getattr(j, f)), err_msg=f)
-    assert_grid_close(t.data[:ns].numpy(), np.asarray(j.data)[:ns],
+    # JAX pads each axis to a multiple of 8 points, never read
+    nx, ny, nz = t.data.shape[1:]
+    assert (nx, ny, nz) == tuple(int(v) + 1 for v in np.asarray(
+        j.dims_minus_1)) and (nx, ny, nz) != j.data.shape[1:]
+    assert_grid_close(t.data[:ns].numpy(),
+                      np.asarray(j.data)[:ns, :nx, :ny, :nz],
                       cutoff_step(g, ns, False))
     assert (t.data[ns:] == 0).all()
     if which == "ad4":
         assert g["tsf"].has_charge_terms
-        jc = np.asarray(j.chargedata)[:ns]
+        jc = np.asarray(j.chargedata)[:ns, :nx, :ny, :nz]
         assert float(np.abs(jc).max()) > 1e-2
         assert_grid_close(t.chargedata[:ns].numpy(), jc,
                           cutoff_step(g, ns, True))
@@ -403,9 +408,14 @@ def test_user_grid_folds_into_the_search_grids(system, maps):
     t = te._populate_cache([system["tlig"]], tr, lo, hi)
     ns = int(np.asarray(j.type_gridded).sum())
     step = cutoff_step(dict(jsf=jsf, jr=jr, j=j), ns, False)
-    assert_grid_close(t.data[:ns].numpy(), np.asarray(j.data)[:ns], step)
-    assert_grid_close(t.cells.reshape(16, -1, 8)[:ns].numpy(),
-                      np.asarray(j.cells).reshape(16, -1, 8)[:ns], step)
+    # the unpadded points, and the cells whose 8 corners lie among them
+    nx, ny, nz = t.data.shape[1:]
+    assert_grid_close(t.data[:ns].numpy(),
+                      np.asarray(j.data)[:ns, :nx, :ny, :nz], step)
+    assert_grid_close(
+        t.cells.reshape(16, nx, ny, nz, 8)[:ns, :-1, :-1, :-1].numpy(),
+        np.asarray(j.cells).reshape((16,) + j.data.shape[1:] + (8,))[
+            :ns, :nx - 1, :ny - 1, :nz - 1], step)
     uv = tug.user_values_on_lattice(maps["t"][0], lo, tcg.GRANULARITY,
                                     t.data.shape[1:])
     assert float(uv.abs().max()) > 0.1
@@ -501,9 +511,33 @@ def test_ssd_on_the_ligand_energy_matches_jax(system):
     assert (want.f0 < np.asarray(via_jax(tconf((pos, q, tors)))[0])).all()
 
 
-def test_batched_trials_give_the_sequential_search(system):
-    """MinimizeParams.batched_trials (the MC chains' ten Armijo trials in
-    one call) gives the sequential line search's result exactly."""
+def sequential_line_search(f_val, x, g, f0, p):
+    """bfgs.h:73-91 as the reference writes it: trial k = 0..9 at alpha
+    0.5^k, the first with sufficient decrease taken; if none, the last
+    trial's point with alpha 0.5^10."""
+    from gnina_tpu_torch.ops.fk import conf_increment
+
+    pg = torch.sum(p * g, dim=-1)
+    found = torch.zeros(f0.shape[0], dtype=torch.bool)
+    alpha = torch.full_like(f0, 0.5 ** 10)
+    x_new, f1 = x, f0
+    for k in range(10):
+        a = 0.5 ** k
+        xk = conf_increment(x, p, a)
+        fk = f_val(xk)
+        ok = ~found & ((fk - f0) < 1e-4 * a * pg)
+        take = ok | (~found if k == 9 else torch.zeros_like(found))
+        x_new = tbfgs._where_conf(take, xk, x_new)
+        f1 = torch.where(take, fk, f1)
+        alpha = torch.where(ok, a, alpha)
+        found = found | ok
+    return tbfgs.LineSearchResult(alpha=alpha, x_new=x_new, f1=f1)
+
+
+def test_batched_trials_give_the_sequential_search(system, monkeypatch):
+    """The fast line search's ten Armijo trials in one batched call give
+    the reference's sequential search exactly: the same BFGS result with
+    sequential_line_search in its place."""
     jsf, tsf = sfs(system, "vina")
     _, _, _, (tl, tr, tbox), layers = prepared(system, jsf, tsf, size=12.0)
     from gnina_tpu_torch.ops.energy import make_energy_fn
@@ -519,11 +553,12 @@ def test_batched_trials_give_the_sequential_search(system):
     def fv(x):
         return tfn.eval_energy(tl, tr, x, tbox, 1e3, [10.0] * 3)
 
+    b = tbfgs.bfgs(f, c, tbfgs.MinimizeParams(maxiters=6), f_val=fv)
+    monkeypatch.setattr(tbfgs, "fast_line_search", sequential_line_search)
     a = tbfgs.bfgs(f, c, tbfgs.MinimizeParams(maxiters=6), f_val=fv)
-    b = tbfgs.bfgs(f, c, tbfgs.MinimizeParams(maxiters=6,
-                                              batched_trials=True), f_val=fv)
     assert torch.equal(a.f0, b.f0)
     assert all(torch.equal(x, y) for x, y in zip(a.x, b.x))
+    assert not torch.equal(a.x.position, c.position)
 
 
 def test_ssd_params_match_jax():

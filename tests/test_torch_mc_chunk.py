@@ -228,8 +228,7 @@ def test_mc_chunk_steps_match_jax_on_its_draws(system, grids, stride):
     chunk = jax_chunk(system, grids, stride)
     lig_l, fns = port_fns(system, grids)
     par = tmc.MCParams(num_saved_mins=SLOTS, refine_stride=stride,
-                       minparams=MinimizeParams(maxiters=MAXIT,
-                                                batched_trials=True))
+                       minparams=MinimizeParams(maxiters=MAXIT))
     dof = (torch.arange(6 + m - 1) < 6 + ntors).expand(LANES, -1)
     nt = torch.full((LANES,), ntors)
     rig = torch.ones(LANES, dtype=torch.bool)
