@@ -39,7 +39,12 @@ GENERAL_STEPS steps: the populate and dock times, every pose against
 the engine's and K1's exact rescores and the box, a --scoring dkoes_scoring and a
 --user_grid job through cli.main, and the fused route against the
 general path over 3 seeds (ROADMAP item 16; the gap and
-scripts/quality_gate.py's bar are printed).
+scripts/quality_gate.py's bar are printed).  Phase [9] runs flexible side
+chains, covalent ligands and --outputmin, which take the general path
+only: a flex dock_batch at full width on a receptor with real residues
+(FLEX_STEPS steps) and six cli.main jobs at FLEX_CLI_STEPS steps
+(--flexdist with --out_flex and --full_flex_output, --flexres, --flex, a
+covalent job, --minimize --outputmin 4, --no_lig --score_only).
 
 Phases print one line each; any failed check exits non-zero.  The line
 before the last is the kernel table as JSON (`launches` counts kernel
@@ -91,6 +96,11 @@ LIGANDS, EXHAUSTIVENESS, MC_STEPS = 16, 8, 1024
 # docks run 128 steps and its command-line jobs 32, not 1024 (PERF.md
 # section 4)
 GENERAL_STEPS, GENERAL_CLI_STEPS = 128, 32
+# phase [9]'s depth: flex jobs take the general path only, at 0.7-1.5 s a
+# step at 128 lanes with four flex residues, so the flex dock is cut from
+# 1024 to 32 steps at full width and its command-line jobs to 8, to keep
+# [9] under 150 s (PERF.md section 4)
+FLEX_STEPS, FLEX_CLI_STEPS = 32, 8
 
 
 class Failure(Exception):
@@ -1009,6 +1019,29 @@ def phase_cli(S, scorer_names):
     return launches, coupled, walls
 
 
+def timed_populate(eng):
+    """Wrap the engine's _populate_cache (an instance attribute over the
+    method; `del eng._populate_cache` unwraps it) so that each call's wall,
+    the card synchronised on both sides, and its grids are recorded:
+    returns the two lists."""
+    import torch
+
+    walls, grids = [], []
+    real = eng._populate_cache
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        grids.append(out)
+        return out
+
+    eng._populate_cache = timed
+    return walls, grids
+
+
 def phase_general(seed, steps, cli_steps, seeds=3):
     """[8] The general path (fused_search="off": search grids, the per-step
     MC of mc_chunk, the stages on the exact energy; ordinary PyTorch, no
@@ -1045,24 +1078,12 @@ def phase_general(seed, steps, cli_steps, seeds=3):
                 exhaustiveness=EXHAUSTIVENESS)
     gen = DockingEngine(DockSettings(fused_search="off", **base))
     check(gen.device.type == "cuda", "the general engine is not on the card")
-    pop, made = [], []
-    real_pop = gen._populate_cache
-
-    def timed_pop(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_pop(*a, **kw)
-        torch.cuda.synchronize()
-        pop.append(time.perf_counter() - t0)
-        made.append(out)
-        return out
-
-    gen._populate_cache = timed_pop
+    pop, made = timed_populate(gen)
     results, wall, cnt = counted_dock(fd, gen, rec, ligs, center, size,
                                       seed=seed)
     check(not any(cnt.launches.values()),
           f"the general path launched kernels: {cnt.launches}")
-    gen._populate_cache = real_pop
+    del gen._populate_cache
     grids = made[0] if made else None
     check(len(pop) == 1 and grids is not None
           and tuple(grids.data.shape[1:]) == cg.grid_shape_for(lo, hi)
@@ -1249,6 +1270,292 @@ def phase_general(seed, steps, cli_steps, seeds=3):
           "(reported, not a check)", flush=True)
     return dict(populate_s=pop[0], dock_s=wall, cli=walls, fused=means[
         "fused"], general=means["general"], bar=bar)
+
+
+def phase_flex(seed, steps, cli_steps):
+    """[9] Flexible side chains, covalent ligands and --outputmin on the
+    card (the general path: every such job leaves the fused route).
+
+    [9a] dock_batch at full width: 16 copies of the ligand with the
+    residues that --flexdist 3.5 selects in the seed's receptor with real
+    residues (_fixtures.flex_receptor), extracted, stripped and attached
+    as the command line does, x 8 chains in a 20 A box, `steps` MC steps.
+    Checks every pose: finite and in the box, the inflex anchors (CA, C)
+    at their input coordinates within 1e-4 A, every bond inside a flex
+    residue at its input length within 1e-3 A, and the energy and
+    intramolecular energy the flex-aware exact_split of its conf
+    recomputed on the CPU within 1e-3 kcal/mol.
+
+    [9b] cli.main jobs, 1 ligand x 8 chains, `cli_steps` steps: --flexdist
+    with --out_flex and --full_flex_output, --flexres on the same
+    residues, --flex on a PDBQT written from the fixture, a covalent job
+    onto the fixture's CYS SG, --minimize --outputmin 4 (in a scratch
+    working directory: minout.sdf goes there) and --no_lig --score_only."""
+    import re
+    import tempfile
+
+    import torch
+
+    from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch import cli
+    from gnina_tpu_torch.chem import covalent, flexinfo, ingest
+    from gnina_tpu_torch.chem.ingest import box_from_center_size
+    from gnina_tpu_torch.chem.tree_build import attach_flex
+    from gnina_tpu_torch.constants import IS_HYDROGEN
+    from gnina_tpu_torch.docking import DockingEngine, DockSettings, \
+        exact_split
+    from gnina_tpu_torch.ops import fused_dock as fd
+    from gnina_tpu_torch.ops.energy import Box
+    from gnina_tpu_torch.types import Conf, pad_ligand, pad_receptor
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flex_")
+    path = lambda name: os.path.join(tmp, name)
+    lig = fx.ligand()
+    rec_text = fx.flex_receptor_pdb_text(lig, seed)
+    with open(path("rec.pdb"), "w") as f:
+        f.write(rec_text)
+    rec = ingest.Receptor.from_file(path("rec.pdb"))
+    center, _ = ingest.autobox_ligand(fx.LIGAND_SDF)
+    size = np.full(3, 20.0, np.float32)
+    lo, hi = box_from_center_size(center, size)
+    keys = flexinfo.select_flex_residues(rec, flexdist=3.5,
+                                         flexdist_coords=lig.orig_coords)
+    check(len(keys) >= 4 and tuple(keys) == fx.FLEXDIST_35,
+          f"--flexdist 3.5 selected {keys}, not {fx.FLEXDIST_35}")
+    flex = [flexinfo.extract_flex_residue(rec, k) for k in keys]
+    rigid = flexinfo.strip_flex_from_receptor(rec, flex)
+    cplx = attach_flex(lig, flex)
+    names = " ".join(f"{f.resname}{f.key[1]}" for f in flex)
+    nf = cplx.movable_atoms - cplx.lig_atoms
+
+    # [9a] dock_batch at full width through the general path
+    eng = DockingEngine(DockSettings(cnn_scoring="none", num_mc_steps=steps,
+                                     exhaustiveness=EXHAUSTIVENESS))
+    check(eng.device.type == "cuda" and not eng._fused_route([cplx]),
+          "a flex job on the fused route, or off the card")
+    pop, _ = timed_populate(eng)
+    results, wall, cnt = counted_dock(fd, eng, rigid, [cplx] * LIGANDS,
+                                      center, size, seed=seed)
+    del eng._populate_cache
+    check(not any(cnt.launches.values()),
+          f"the flex dock launched kernels: {cnt.launches}")
+    check(len(pop) == 1, "the search grids were not populated once")
+
+    # the checks, on the CPU's copy of the energy code
+    ru = lambda x, k: max(-(-x // k) * k, k)
+    n, m = ru(cplx.num_atoms, 8), ru(cplx.num_nodes, 4)
+    pruned = rigid.pruned(np.asarray(center), np.asarray(size) / 2,
+                          margin=eng.sf.cutoff)
+    rec_d = pad_receptor(pruned.coords, pruned.types, pruned.charges,
+                         ru(len(pruned.types), 128), device="cpu")
+    lig_d = pad_ligand(cplx, n, m, ru(len(cplx.pairs), 32), device="cpu")
+    efn = eng._make_efn(int(cplx.layer.max()))
+    box = Box(lo=torch.as_tensor(lo), hi=torch.as_tensor(hi))
+    orig = cplx.orig_coords
+    inflex = np.arange(cplx.movable_atoms, cplx.num_atoms)
+    bonds, off = [], cplx.movable_atoms
+    for (_key, _name, start, end, fr) in cplx.flex_meta:
+        # the atom pairs bonded inside one flex residue (its movable atoms
+        # and its inflex anchors, which attach_flex appends in order)
+        idx = np.r_[start:end, off:off + len(fr.inflex_types)]
+        off += len(fr.inflex_types)
+        d = np.linalg.norm(orig[idx][:, None] - orig[idx][None], axis=-1)
+        bonds += [(idx[a], idx[b])
+                  for a, b in zip(*np.nonzero(np.triu(d < 2.0, 1)))]
+    bonds = np.array(bonds)
+    d0 = np.linalg.norm(orig[bonds[:, 0]] - orig[bonds[:, 1]], axis=-1)
+    heavy = cplx.movable_atoms > np.arange(cplx.num_atoms)
+    heavy &= ~IS_HYDROGEN[cplx.types]
+    worst = dict(anchor=0.0, bond=0.0, energy=0.0, intramol=0.0)
+    n_poses = 0
+    for res in results:
+        check(bool(res), "a flex ligand without poses")
+        tors = np.zeros((len(res), m - 1), np.float32)
+        for i, p in enumerate(res):
+            tors[i, :len(p.conf_torsions)] = p.conf_torsions
+        conf = Conf(*[torch.as_tensor(np.asarray(x, np.float32))
+                      for x in ([p.conf_position for p in res],
+                                [p.conf_orientation for p in res], tors)])
+        with torch.no_grad():
+            inter, intra = exact_split(efn, lig_d, rec_d, conf, box, 1e3,
+                                       [1000.0] * 3)
+        e_cpu = eng._conf_independent(cplx, inter.numpy())
+        for i, p in enumerate(res):
+            c = np.asarray(p.coords, np.float64)
+            check(bool(np.isfinite(c).all()) and np.isfinite(p.energy)
+                  and np.isfinite(p.intramol), "a non-finite flex pose")
+            check(bool(((c[heavy] >= lo - 1e-3)
+                        & (c[heavy] <= hi + 1e-3)).all()),
+                  "a flex pose outside the box")
+            worst["anchor"] = max(worst["anchor"],
+                                  float(np.abs(c[inflex] - orig[inflex]).max()))
+            d = np.linalg.norm(c[bonds[:, 0]] - c[bonds[:, 1]], axis=-1)
+            worst["bond"] = max(worst["bond"], float(np.abs(d - d0).max()))
+            worst["energy"] = max(worst["energy"],
+                                  abs(p.energy - float(e_cpu[i])))
+            worst["intramol"] = max(worst["intramol"],
+                                    abs(p.intramol - float(intra[i])))
+        n_poses += len(res)
+    check(worst["anchor"] <= 1e-4, f"an inflex anchor moved {worst}")
+    check(worst["bond"] <= 1e-3, f"a flex bond changed length {worst}")
+    check(worst["energy"] <= 1e-3 and worst["intramol"] <= 1e-3,
+          f"pose energies vs the CPU's exact_split: {worst}")
+    print(f"[9a] flex dock_batch (general path), {LIGANDS} ligands x "
+          f"{EXHAUSTIVENESS} chains, {steps} steps, 20 A box: residues "
+          f"{names} ({nf} flex atoms, {len(inflex)} inflex anchors), "
+          f"{cplx.num_torsions} torsions ({lig.num_torsions} ligand + "
+          f"{cplx.num_torsions - lig.num_torsions} flex), "
+          f"{len(cplx.other_pairs)} other pairs; populate {pop[0]:.2f} s, "
+          f"dock {wall:.2f} s wall with the populate "
+          f"({(wall - pop[0]) / steps * 1e3:.1f} ms a step); {n_poses} "
+          f"poses, finite and in the box, anchors within "
+          f"{worst['anchor']:.1e} A, {len(bonds)} flex bonds within "
+          f"{worst['bond']:.1e} A, energy and intramol the CPU's "
+          f"exact_split within {worst['energy']:.1e} / "
+          f"{worst['intramol']:.1e} kcal/mol; best "
+          f"{min(r[0].energy for r in results):.3f} kcal/mol; no kernel "
+          f"launched | {smi_line()}", flush=True)
+
+    # [9b] the command line
+    with open(fx.LIGAND_SDF) as f:
+        first = f.read().split("$$$$\n")[0] + "$$$$\n"
+    with open(path("one.sdf"), "w") as f:
+        f.write(first)
+    with open(path("warhead.sdf"), "w") as f:
+        f.write(fx.ACRYLAMIDE_SDF)
+    with open(path("flex.pdbqt"), "w") as f:
+        f.write(fx.flex_pdbqt_text(rec, keys))
+    flex_set = {(k[0], k[1]) for k in keys}
+    with open(path("rigid.pdb"), "w") as f:   # the --flex job's receptor
+        f.write("".join(
+            ln + "\n" for ln in rec_text.splitlines()
+            if not (ln.startswith("ATOM") and (ln[21], int(ln[22:26]))
+                    in flex_set and ln[12:16].strip()
+                    not in flexinfo.BACKBONE_RIGID)))
+    spec = ",".join(f"{c}:{r}" for c, r in sorted(flex_set))
+    cys = next(r for n_, r, _ in fx.FLEX_RESIDUES if n_ == "CYS")
+    box_args = ["--center_x", f"{center[0]:.4f}", "--center_y",
+                f"{center[1]:.4f}", "--center_z", f"{center[2]:.4f}",
+                "--size_x", "20", "--size_y", "20", "--size_z", "20"]
+    common = ["--cnn_scoring", "none", "--exhaustiveness",
+              str(EXHAUSTIVENESS), "--num_mc_steps", str(cli_steps),
+              "--seed", str(seed), "-q"]
+    lig1 = ["-r", path("rec.pdb"), "-l", path("one.sdf")]
+    jobs = {
+        "flexdist": lig1 + box_args + [
+            "--flexdist", "3.5", "--flexdist_ligand", path("one.sdf"),
+            "--out_flex", path("flexdist.pdb"), "--full_flex_output"],
+        "flexres": lig1 + box_args + ["--flexres", spec],
+        "flex": ["-r", path("rigid.pdb"), "-l", path("one.sdf"),
+                 "--flex", path("flex.pdbqt")] + box_args,
+        "covalent": ["-r", path("rec.pdb"), "-l", path("warhead.sdf"),
+                     "--covalent_rec_atom", f"A:{cys}:SG",
+                     "--covalent_lig_atom_pattern", "[$(C=C)]"] + box_args,
+        "outputmin": lig1 + ["--flexres", spec, "--minimize",
+                             "--outputmin", "4"],
+        "no_lig": ["-r", path("rec.pdb"), "--no_lig", "--flexres", spec,
+                   "--score_only"],
+    }
+    walls, notes = {}, {}
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)       # --outputmin writes minout.sdf in the cwd
+        for name, flags in jobs.items():
+            out = [] if name == "no_lig" else ["-o", path(f"{name}.sdf")]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(common + flags + out
+                          + ["--log", path(f"{name}.log")])
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+    finally:
+        os.chdir(cwd)
+
+    def read(name):
+        with open(path(name)) as f:
+            return f.read()
+
+    def sdf_poses(name):
+        text = read(f"{name}.sdf")
+        tags = [float(v) for v in re.findall(
+            r">  <minimizedAffinity>\n(\S+)", text)]
+        check(text.count("$$$$") == len(tags) >= 1
+              and np.isfinite(tags).all(), f"cli.main {name}: poses")
+        blocks = []
+        for blk in text.split("$$$$\n")[:len(tags)]:
+            lines = blk.splitlines()
+            na = int(lines[3][:3])
+            blocks.append(np.array([[float(v) for v in ln.split()[:3]]
+                                    for ln in lines[4:4 + na]]))
+        return tags, blocks
+
+    def flex_line(name):
+        hit = re.findall(r"Flexible residues: (.*)", read(f"{name}.log"))
+        check(len(hit) == 1, f"cli.main {name}: no flexible residues")
+        return set(hit[0].split())
+
+    want = {f"{c}:{r}" for c, r in flex_set}
+    for name in ("flexdist", "flexres", "flex"):
+        check(flex_line(name) == want, f"cli.main {name}: residues "
+              f"{flex_line(name)}, not {want}")
+        tags, _ = sdf_poses(name)
+        notes[name] = f"{len(tags)} poses, best {min(tags):.3f}"
+    # --out_flex --full_flex_output: a MODEL a pose, each the stripped
+    # receptor's heavy atoms and the flex atoms
+    pdb = read("flexdist.pdb")
+    models = pdb.split("ENDMDL\n")[:-1]
+    n_rigid = sum(1 for a in rigid.mol.atoms if a.anum != 1)
+    check(len(models) == len(sdf_poses("flexdist")[0]) and all(
+        sum(ln.startswith("ATOM") for ln in blk.splitlines())
+        == n_rigid + nf for blk in models),
+        f"--out_flex: {len(models)} models, not one a pose of "
+        f"{n_rigid} + {nf} atoms")
+    notes["flexdist"] += (f", --out_flex {len(models)} MODELs of "
+                          f"{n_rigid} + {nf} atoms")
+    # covalent: the attachment atom where build_covalent_complex placed it
+    cinfo = covalent.CovInfo(covalent.CovOptions(
+        covalent_rec_atom=f"A:{cys}:SG",
+        covalent_lig_atom_pattern="[$(C=C)]"), log=lambda *a: None)
+    mol = next(ingest.iter_molecules(path("warhead.sdf")))
+    _, placed = covalent.build_covalent_complex(rec, mol, cinfo)
+    tags, blocks = sdf_poses("covalent")
+    moved = max(float(np.abs(b[0] - placed[0].orig_coords[0]).max())
+                for b in blocks)
+    check(moved <= 1e-3, f"the covalent attachment atom moved {moved} A")
+    notes["covalent"] = (f"{len(tags)} poses, best {min(tags):.3f}, "
+                         f"attachment atom within {moved:.1e} A")
+    # --outputmin 4: 5 frames a step, each step starting where the last
+    # ended, the last frame the minimized pose
+    frames = [np.array([[float(v) for v in ln.split()[:3]]
+                        for ln in blk.splitlines()[4:4 + int(
+                            blk.splitlines()[3][:3])]])
+              for blk in read("minout.sdf").split("$$$$\n")[:-1]]
+    f_ = np.array(frames)
+    check(len(f_) >= 5 and len(f_) % 5 == 0 and np.isfinite(f_).all(),
+          f"--outputmin 4 wrote {len(f_)} frames")
+    seam = float(np.abs(f_[4:-1:5] - f_[5::5]).max()) if len(f_) > 5 else 0
+    _, mblocks = sdf_poses("outputmin")
+    last = float(np.abs(f_[-1] - mblocks[0]).max())
+    # a step's frames rotate by quaternion_to_rotvec(q1 q0*), whose arccos
+    # in float32 drops rotations under about 1e-3 rad (as in the JAX
+    # package): a late, small step's last frame may sit a few 1e-3 A from
+    # the next step's first
+    check(seam <= 1e-2 and last <= 1e-2,
+          f"--outputmin frames: seams {seam}, last frame vs the minimized "
+          f"pose {last}")
+    notes["outputmin"] = (f"{len(f_)} frames ({len(f_) // 5} steps x 5), "
+                          f"seams within {seam:.1e} A, last frame within "
+                          f"{last:.1e} A of the minimized pose")
+    aff = re.findall(r"Affinity: (\S+)", read("no_lig.log"))
+    check(len(aff) == 1 and np.isfinite(float(aff[0])),
+          f"--no_lig --score_only: {aff}")
+    notes["no_lig"] = f"affinity {float(aff[0]):.3f}"
+    print("[9b] cli.main flex and covalent jobs, 1 ligand x "
+          f"{EXHAUSTIVENESS} chains, {cli_steps} steps: " + "; ".join(
+              f"{k} rc 0 in {walls[k]:.2f} s, {notes[k]}" for k in jobs),
+          flush=True)
+    return dict(dock_s=wall, populate_s=pop[0], cli=walls)
 
 
 def read_counts(fd):
@@ -2193,6 +2500,9 @@ def main():
 
     # ---- 8. the general path (no kernel) ----------------------------------
     phase_general(args.seed, GENERAL_STEPS, GENERAL_CLI_STEPS)
+
+    # ---- 9. flex residues, covalent ligands, --outputmin (no kernel) -------
+    phase_flex(args.seed, FLEX_STEPS, FLEX_CLI_STEPS)
 
     table = {"kernels": [dict(
         name=row["name"], route="cuda",

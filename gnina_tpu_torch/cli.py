@@ -17,8 +17,9 @@ Differences from the JAX CLI, all forced by the port:
   are shared, and the port's kernels take their shapes at run time.
 - Buckets are docked in a plain loop; `--no_compile_ahead` is accepted
   without effect (its two worker threads overlap XLA compiles).
-- Flags whose modules are not ported yet parse and then raise
-  NotImplementedError naming their ROADMAP.md item, before any work.
+- Flags whose modules are not ported yet (the CNN inside the search, the
+  tools, multi-GPU) parse and then raise NotImplementedError naming their
+  ROADMAP.md item, before any work.
 
 The GNINA_TPU_FUSED_* environment knobs keep their names.
 """
@@ -35,10 +36,11 @@ from typing import List, Optional
 import numpy as np
 
 from gnina_tpu_torch import __version__
-from gnina_tpu_torch.chem import ingest
+from gnina_tpu_torch.chem import flexinfo, ingest
+from gnina_tpu_torch.chem.tree_build import attach_flex, empty_ligand_struct
 from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.docking import DockingEngine, DockSettings
-from gnina_tpu_torch.output import write_poses_sdf
+from gnina_tpu_torch.output import write_flex_pdb, write_poses_sdf
 from gnina_tpu_torch.scoring.builtin import get_scoring_function, \
     scoring_function_from_file
 
@@ -270,7 +272,6 @@ class Tee:
 
 # ROADMAP.md items of the modules still to port, by number
 _ITEMS = {
-    12: "Queue 1 item 12: flex and covalent",
     13: "Queue 1 item 13: CNN inside the search",
     14: "Queue 1 item 14: multi-GPU",
     15: "Queue 1 item 15: tools",
@@ -281,17 +282,6 @@ def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose module is not ported yet,
     naming its ROADMAP.md item; nothing is silently ignored."""
     checks = [
-        (bool(args.flex), "--flex", 12),
-        (bool(args.flexres), "--flexres", 12),
-        (bool(args.flexdist_ligand) or args.flexdist > 0, "--flexdist", 12),
-        (args.no_lig, "--no_lig", 12),
-        (bool(args.out_flex), "--out_flex", 12),
-        (args.full_flex_output, "--full_flex_output", 12),
-        (bool(args.covalent_rec_atom or args.covalent_lig_atom_pattern
-              or args.covalent_lig_atom_position
-              or args.covalent_fix_lig_atom_position
-              or args.covalent_optimize_lig), "--covalent_*", 12),
-        (args.outputmin > 0, "--outputmin", 12),
         (args.cnn_scoring in ("refinement", "metrorescore", "metrorefine",
                               "all"), f"--cnn_scoring {args.cnn_scoring}", 13),
         (args.cnn_mix_emp_force or args.cnn_mix_emp_energy,
@@ -486,6 +476,53 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         engine.progress = lambda msg: log.write(msg + "\n")
     rec = ingest.Receptor.from_file(args.receptor)
 
+    # covalent docking context (reference: covinfo.cpp, molgetter.cpp:105+)
+    cov_ctx = None
+    if args.covalent_rec_atom:
+        from gnina_tpu_torch.chem import covalent as cov_mod
+
+        cinfo = cov_mod.CovInfo(cov_mod.CovOptions(
+            covalent_rec_atom=args.covalent_rec_atom,
+            covalent_lig_atom_pattern=args.covalent_lig_atom_pattern,
+            covalent_lig_atom_position=args.covalent_lig_atom_position,
+            covalent_fix_lig_atom_position=args.covalent_fix_lig_atom_position,
+            covalent_bond_order=args.covalent_bond_order,
+            covalent_optimize_lig=args.covalent_optimize_lig,
+            dont_move_ligand=bool(args.score_only or args.minimize
+                                  or args.local_only),
+        ), log=lambda m: log.write(m + "\n"))
+        rec, covres, cov_ratom = cov_mod.extract_covres(rec, cinfo)
+        cov_ctx = (cov_mod, cinfo, covres, cov_ratom)
+        log.write(f"Covalent receptor atom: {cinfo.rec_atom_string()}\n")
+
+    # flexible residue selection (reference: flexinfo.cpp)
+    flex_residues = []
+    if args.flex:
+        # user-supplied flex PDBQT (parse_pdbqt.h:28-32, molgetter.cpp:52+)
+        with open(args.flex) as f:
+            flex_residues.extend(flexinfo.flex_from_pdbqt(f.read()))
+        if not flex_residues:
+            log.write(f"WARNING: no flexible residues parsed from "
+                      f"{args.flex}\n")
+    if args.flexres or (args.flexdist > 0 and args.flexdist_ligand):
+        flexdist_coords = None
+        if args.flexdist_ligand:
+            fl = next(ingest.iter_ligands(args.flexdist_ligand))
+            flexdist_coords = fl.orig_coords
+        keys = flexinfo.select_flex_residues(
+            rec, flexres=args.flexres, flexdist=args.flexdist,
+            flexdist_coords=flexdist_coords, flex_limit=args.flex_limit,
+            flex_max=args.flex_max)
+        selected = [f for f in (flexinfo.extract_flex_residue(rec, k)
+                                for k in keys) if f is not None]
+        if selected:
+            rec = flexinfo.strip_flex_from_receptor(rec, selected)
+            flex_residues.extend(selected)
+    if flex_residues:
+        log.write("Flexible residues: " + " ".join(
+            f"{f.key[0]}:{f.key[1]}{f.key[2]}" for f in flex_residues)
+            + "\n")
+
     # search box
     center = size = None
     if args.autobox_ligand:
@@ -503,10 +540,32 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     cnn_enabled = cnn is not None
 
     def load_all_ligands():
+        if args.no_lig:
+            if not flex_residues:
+                log.write("ERROR: --no_lig requires flexible residues\n")
+                return
+            yield attach_flex(empty_ligand_struct(), flex_residues)
+            return
         for ligpath in args.ligand:
-            yield from ingest.iter_ligands(
-                ligpath, strip_h=strip_h, add_h=add_h,
-                flex_hydrogens=args.flex_hydrogens)
+            if cov_ctx is not None:
+                cov_mod, cinfo, covres, cov_ratom = cov_ctx
+                for mol in ingest.iter_molecules(ligpath):
+                    complexes = cov_mod.covalent_complexes_for_mol(
+                        covres, cov_ratom, mol, cinfo,
+                        rec_coords=rec.coords)
+                    if not complexes:
+                        log.write(f"WARNING: Ligand {mol.name} did not "
+                                  "match covalent_lig_atom_pattern. "
+                                  "Skipping\n")
+                    for li, lig in enumerate(complexes):
+                        if len(complexes) > 1:
+                            lig.name = f"{lig.name}_match{li}"
+                        yield lig
+                continue
+            for lig in ingest.iter_ligands(
+                    ligpath, strip_h=strip_h, add_h=add_h,
+                    flex_hydrogens=args.flex_hydrogens):
+                yield attach_flex(lig, flex_residues)
 
     def render_poses(lig, results):
         """Pose text for -o (SDF, or PDBQT when the extension asks:
@@ -539,6 +598,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                            render_poses)
 
     out_chunks: List[str] = []
+    out_flex_chunks: List[str] = []
     atom_chunks: List[str] = []
     n_ligs = 0
     for lig in load_all_ligands():
@@ -580,6 +640,17 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                           "greater than 100A. Skipping.\n")
                 continue
             r = engine.minimize(rec, lig)
+            if args.outputmin > 0:
+                # minout.sdf in the working directory, as the reference
+                # writes it (bfgs.h:265)
+                frames = engine.minimize_trajectory(rec, lig)
+                from gnina_tpu_torch.chem.sdf import write_sdf_block
+
+                with open("minout.sdf", "w") as fmin:
+                    for fc in frames:
+                        fmin.write(write_sdf_block(lig.mol, coords=fc,
+                                                   name=lig.name))
+                log.write(f"Wrote minout.sdf ({len(frames)} frames)\n")
             log.write(f"Affinity: {r.energy:.5f}  {r.intramol:.5f} "
                       f"(kcal/mol)\nRMSD: {r.rmsd:.5f}\n")
             log.write(f"CNNscore: {r.cnnscore:.5f} \n")
@@ -607,6 +678,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                 out_chunks.append(text)
             if args.atom_terms and tables:
                 atom_chunks.extend(tables)
+        if args.out_flex and lig.flex_meta:
+            out_flex_chunks.append(write_flex_pdb(
+                lig, results,
+                rigid=rec.mol if args.full_flex_output else None))
     if n_ligs == 0:
         log.write("ERROR: no ligands could be read from: "
                   + " ".join(args.ligand) + "\n")
@@ -617,6 +692,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     if args.atom_terms:
         with open(args.atom_terms, "w") as f:
             f.write("".join(atom_chunks))
+    if args.out_flex:
+        with open(args.out_flex, "w") as f:
+            f.write("".join(out_flex_chunks))
 
     log.write(f"\nLoop time {time.time() - t_start:.2f}\n")
     log.close()
@@ -679,7 +757,10 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                           f"'{stored_name}' but the ligand file has "
                           f"'{all_ligs[idx].name}'; re-docking it\n")
                 continue
-            results_by_idx[idx] = ("text", stored_name, body)
+            # a flex chunk (if any) rides in the same block after its marker
+            sdf_body, _, flex_part = body.partition("#GNINA_TPU_FLEX ")
+            flex_body = flex_part.partition("\n")[2] if flex_part else ""
+            results_by_idx[idx] = ("text", stored_name, (sdf_body, flex_body))
             resumed.add(idx)
         if resumed:
             log.write(f"Resuming: {len(resumed)} of {len(all_ligs)} "
@@ -737,6 +818,11 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                 sdf_text, _ = render_poses(lig, res)
                 part_f.write(f"#GNINA_TPU_IDX {idx} {lig.name}\n")
                 part_f.write(sdf_text)
+                if args.out_flex and lig.flex_meta:
+                    part_f.write(f"#GNINA_TPU_FLEX {idx}\n")
+                    part_f.write(write_flex_pdb(
+                        lig, res,
+                        rigid=rec.mol if args.full_flex_output else None))
                 part_f.flush()
 
     # a plain loop over the buckets: there is no compile to overlap
@@ -748,12 +834,16 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
         part_f.close()
 
     out_chunks = []
+    out_flex_chunks = []
     atom_chunks = []
     for i in range(len(all_ligs)):
         kind, a, b = results_by_idx[i]
         if kind == "text":
             log.write(f"\n## {a} (resumed)\n")
-            out_chunks.append(b)
+            sdf_body, flex_body = b
+            out_chunks.append(sdf_body)
+            if flex_body:
+                out_flex_chunks.append(flex_body)
             continue
         lig, results = a, b
         log.write(f"\n## {lig.name}\n")
@@ -764,6 +854,10 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                 out_chunks.append(text)
             if args.atom_terms and tables:
                 atom_chunks.extend(tables)
+        if args.out_flex and lig.flex_meta:
+            out_flex_chunks.append(write_flex_pdb(
+                lig, results,
+                rigid=rec.mol if args.full_flex_output else None))
     if args.out:
         with open(args.out, "w") as f:
             f.write("".join(out_chunks))
@@ -773,6 +867,9 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
         # resumed ligands' tables are not recomputed
         with open(args.atom_terms, "w") as f:
             f.write("".join(atom_chunks))
+    if args.out_flex:
+        with open(args.out_flex, "w") as f:
+            f.write("".join(out_flex_chunks))
     log.write(f"\nLoop time {time.time() - t_start:.2f}\n")
     log.close()
     return 0

@@ -161,7 +161,8 @@ def conf_unstore(row, t: int) -> Conf:
 
 
 def bfgs(f: Callable, x0: Conf, params: MinimizeParams,
-         dof_mask=None, f_val: Optional[Callable] = None) -> BfgsResult:
+         dof_mask=None, f_val: Optional[Callable] = None,
+         traj_cap: int = 0):
     """Minimize f over pose DOF starting at x0 (bfgs.h:357-502).
 
     f: Conf (B, ...) -> (energy (B,), flat gradient (B, D)).
@@ -169,7 +170,14 @@ def bfgs(f: Callable, x0: Conf, params: MinimizeParams,
     dof_mask: optional (D,) bool of active DOF (padded torsions False).
     A pose stops once its line search finds no step (alpha 0), its gradient
     is small (|g|^2 < 1e-4) or, with early_term, its energy moved by less
-    than 1e-5; the loop ends when every pose has, or at maxiters."""
+    than 1e-5; the loop ends when every pose has, or at maxiters.
+
+    traj_cap > 0 (--outputmin, bfgs.h:244-310): also record each pose's
+    conf at the start of every iteration it runs (at row min(step,
+    traj_cap - 1)) and its last iterate after them, into a (B, traj_cap+1,
+    7+T) history; returns (BfgsResult, hist, n_steps (B,)), where rows
+    [i, i+1] for i < n_steps are the accepted-step endpoints that the
+    reference interpolates minout.sdf frames between."""
     if f_val is None:
         def f_val(c):
             return f(c)[0]
@@ -197,9 +205,18 @@ def bfgs(f: Callable, x0: Conf, params: MinimizeParams,
         x, g, f0 = x0, g_init, f0_init
         h = eye.expand(b, d, d).clone()
         done = torch.zeros(b, dtype=torch.bool, device=dev)
+        cols = torch.arange(b, device=dev)
+        nsteps = torch.zeros(b, dtype=torch.int64, device=dev)
+        if traj_cap:
+            hist = torch.zeros((b, traj_cap + 1, 7 + x0.torsions.shape[-1]),
+                               dtype=torch.float32, device=dev)
         for step in range(params.maxiters):
             if bool(done.all()):
                 break
+            if traj_cap:
+                row = torch.clamp(nsteps, max=traj_cap - 1)
+                hist[cols, row] = torch.where(~done[:, None], _conf_store(x),
+                                              hist[cols, row])
             p = -torch.einsum("bij,bj->bi", h, g)
             if dof_mask is not None:
                 p = torch.where(dof_mask, p, 0.0)
@@ -248,10 +265,16 @@ def bfgs(f: Callable, x0: Conf, params: MinimizeParams,
             g = torch.where(live[:, None], g_next, g)
             h = torch.where(live[:, None, None], h_new, h)
             f0 = torch.where(live, f0_new, f0)
+            nsteps = nsteps + live.long()
             done = done | done_new
 
         # restore original if not improved (succeeds for NaN too), bfgs.h:491
         improved = f0 <= f0_init
-        return BfgsResult(x=_where_conf(improved, x, x0),
-                          f0=torch.where(improved, f0, f0_init),
-                          g=torch.where(improved[:, None], g, g_init))
+        res = BfgsResult(x=_where_conf(improved, x, x0),
+                         f0=torch.where(improved, f0, f0_init),
+                         g=torch.where(improved[:, None], g, g_init))
+        if traj_cap:
+            n = torch.clamp(nsteps, max=traj_cap)
+            hist[cols, n] = _conf_store(x)
+            return res, hist, n
+        return res

@@ -28,6 +28,12 @@ def qmul(q, r):
     ], dim=-1)
 
 
+def qconj(q):
+    """Conjugate (w, -x, -y, -z)."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
 def qnormalize_approx(q, tolerance=1e-6):
     """Normalize only if norm deviates from 1 (quaternion.h:242-257)."""
     s = torch.sum(q * q, dim=-1)

@@ -139,7 +139,53 @@ def write_poses_pdbqt(lig: LigandStruct, results: List,
 
 
 def write_flex_pdb(lig: LigandStruct, results: List, rigid=None) -> str:
-    """Flexible-residue poses as multi-MODEL PDB (--out_flex)."""
-    raise NotImplementedError(
-        "flexible-residue output is not ported yet (ROADMAP.md, Queue 1 "
-        "item 12: flex residues)")
+    """Flexible-residue poses as multi-MODEL PDB (--out_flex; reference:
+    result_info.cpp writeFlex).  Each pose writes every flex residue's
+    movable atoms at their docked coordinates.
+
+    rigid (--full_flex_output, main.cpp:963): the stripped rigid-receptor
+    Molecule; its heavy atoms are written first in every MODEL so the
+    output is the entire structure (model.cpp:909-935 write_context with
+    a set_rigid receptor, hydrogens deleted per molgetter.cpp:167-170)."""
+    if not lig.flex_meta:
+        return ""
+    out = []
+    for mi, r in enumerate(results):
+        out.append(f"MODEL     {mi + 1:4d}\n")
+        serial = 1
+        if rigid is not None:
+            for a in rigid.atoms:
+                if a.anum == 1:
+                    continue
+                x, y, z = (float(v) for v in a.coords)
+                name = a.name or ""
+                nm = name if len(name) >= 4 else f" {name:<3s}"
+                out.append(
+                    f"ATOM  {serial:5d} {nm:<4s}{(a.resname or 'UNK'):>4s} "
+                    f"{str(a.chain or 'A')[:1]:1s}{int(a.resnum):4d}    "
+                    f"{x:8.3f}{y:8.3f}{z:8.3f}{1.0:6.2f}{0.0:6.2f}"
+                    f"          {(a.element_name or ''):>2s}\n")
+                serial += 1
+        for meta in lig.flex_meta:
+            key, resname, start, end = meta[0], meta[1], meta[2], meta[3]
+            fr = meta[4] if len(meta) > 4 else None
+            chain = key[0] if isinstance(key, tuple) else "A"
+            resnum = key[1] if isinstance(key, tuple) else 1
+            for k in range(start, end):
+                name = ""
+                element = ""
+                if fr is not None and fr.atoms_mol is not None \
+                        and k - start < len(fr.atoms_mol.atoms):
+                    a = fr.atoms_mol.atoms[k - start]
+                    name = a.name or ""
+                    element = a.element_name or ""
+                x, y, z = (float(v) for v in r.coords[k])
+                nm = name if len(name) >= 4 else f" {name:<3s}"
+                out.append(
+                    f"ATOM  {serial:5d} {nm:<4s}{resname:>4s} "
+                    f"{str(chain)[:1]:1s}{int(resnum):4d}    "
+                    f"{x:8.3f}{y:8.3f}{z:8.3f}{1.0:6.2f}{0.0:6.2f}"
+                    f"          {element:>2s}\n")
+                serial += 1
+        out.append("ENDMDL\n")
+    return "".join(out)

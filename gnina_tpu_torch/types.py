@@ -36,7 +36,7 @@ class LigandData(NamedTuple):
     node_id: torch.Tensor       # (N,) int64
     atom_mask: torch.Tensor     # (N,) bool
     heavy_mask: torch.Tensor    # (N,) bool (real & heavy & movable)
-    movable_mask: torch.Tensor  # (N,) bool
+    movable_mask: torch.Tensor  # (N,) bool (ligand + flex side chains)
     lig_heavy_mask: torch.Tensor  # (N,) bool (ligand block only, heavy)
     # per node (M)
     parent: torch.Tensor        # (M,) int64, -1 root
@@ -48,6 +48,13 @@ class LigandData(NamedTuple):
     pair_a: torch.Tensor        # (P,) int64
     pair_b: torch.Tensor        # (P,) int64
     pair_mask: torch.Tensor     # (P,) bool
+    # "other" pairs (Q): flex-involved, capped at v[2]
+    opair_a: torch.Tensor       # (Q,) int64
+    opair_b: torch.Tensor       # (Q,) int64
+    opair_mask: torch.Tensor    # (Q,) bool
+    opair_ff: torch.Tensor      # (Q,) bool — both ends flex (flex-flex pairs
+                                # belong to the intramolecular sum,
+                                # model.cu:385-397)
     # conf-independent inputs (python floats)
     num_tors: float
     num_heavy_atoms: float
@@ -93,18 +100,20 @@ def pad_receptor(coords, types, charges, k_pad: int,
     )
 
 
-def pad_ligand(lig, n_pad: int, m_pad: int, p_pad: int,
+def pad_ligand(lig, n_pad: int, m_pad: int, p_pad: int, q_pad: int = 0,
                device=None) -> LigandData:
-    """LigandStruct (chem/tree_build.py) -> padded LigandData tensors.
-
-    Ligand-only: flex residues and their "other" pairs take the general
-    path, which is not ported yet."""
+    """LigandStruct (chem/tree_build.py) -> padded LigandData tensors.  The
+    "other" pairs pad to q_pad, at least to the next multiple of 32."""
     device = resolve_device(device)
     n, m, p = lig.num_atoms, lig.num_nodes, len(lig.pairs)
+    opairs = lig.other_pairs if lig.other_pairs is not None else \
+        np.zeros((0, 2), np.int64)
+    q = len(opairs)
+    q_pad = max(q_pad, ((q + 31) // 32) * 32, 32)
     if n_pad < n or m_pad < m or p_pad < p:
         raise ValueError(f"pad too small: atoms {n}>{n_pad} or nodes {m}>{m_pad} "
                          f"or pairs {p}>{p_pad}")
-    an, am, ap = n_pad - n, m_pad - m, p_pad - p
+    an, am, ap, aq = n_pad - n, m_pad - m, p_pad - p, q_pad - q
     hyd = IS_HYDROGEN[lig.types]
     movable = np.zeros(n, bool)
     movable[: lig.movable_atoms] = True
@@ -117,6 +126,8 @@ def pad_ligand(lig, n_pad: int, m_pad: int, p_pad: int,
     rel_axis[m:, 0] = 1.0  # unit axis for padding
     pa = lig.pairs[:, 0] if p else np.zeros(0, np.int64)
     pb = lig.pairs[:, 1] if p else np.zeros(0, np.int64)
+    qa = opairs[:, 0] if q else np.zeros(0, np.int64)
+    qb = opairs[:, 1] if q else np.zeros(0, np.int64)
 
     def f(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -144,6 +155,11 @@ def pad_ligand(lig, n_pad: int, m_pad: int, p_pad: int,
         pair_a=i(np.pad(pa, (0, ap))),
         pair_b=i(np.pad(pb, (0, ap))),
         pair_mask=b(np.pad(np.ones(p, bool), (0, ap))),
+        opair_a=i(np.pad(qa, (0, aq))),
+        opair_b=i(np.pad(qb, (0, aq))),
+        opair_mask=b(np.pad(np.ones(q, bool), (0, aq))),
+        opair_ff=b(np.pad((qa >= lig.lig_atoms) & (qb >= lig.lig_atoms),
+                          (0, aq))),
         num_tors=float(lig.num_tors),
         num_heavy_atoms=float(lig.num_heavy_atoms),
         num_hydrophobic_atoms=float(lig.num_hydrophobic_atoms),

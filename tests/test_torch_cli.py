@@ -330,14 +330,9 @@ def test_errors_return_one(files, capsys):
 
 # the general path's flags (--custom_scoring, --scoring dkoes*|ad4_scoring,
 # --user_grid[_lambda], --simple_ascent, --minimize_single_full) are ported:
-# test_torch_cli_general.py
+# test_torch_cli_general.py; the flex, covalent and --outputmin flags:
+# test_torch_cli_flex.py
 UNPORTED = [
-    (["--flex", "f.pdbqt"], 12), (["--flexres", "A:1"], 12),
-    (["--flexdist", "3", "--flexdist_ligand", "l.sdf"], 12),
-    (["--no_lig"], 12), (["--out_flex", "f.pdb"], 12),
-    (["--full_flex_output"], 12), (["--covalent_rec_atom", "A:1:CA"], 12),
-    (["--covalent_lig_atom_pattern", "[C]"], 12),
-    (["--covalent_optimize_lig"], 12), (["--outputmin", "2"], 12),
     (["--cnn_scoring", "refinement"], 13),
     (["--cnn_scoring", "metrorescore"], 13),
     (["--cnn_scoring", "metrorefine"], 13), (["--cnn_scoring", "all"], 13),

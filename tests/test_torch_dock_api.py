@@ -231,7 +231,10 @@ _PORTED = {"cnn_rescore": dict(cnn_scoring="rescore"),
            "done_frac": dict(fused_done_frac=0.9),
            # the general path: fused_search="off" and non-vina terms
            "fused_search_off": dict(fused_search="off"),
-           "non_vina_terms": {}}
+           "non_vina_terms": {},
+           # flex atoms take the general path; a ligand without rigid DOF
+           # (a covalent complex's tree) docks by its torsions
+           "flex": {}, "covalent": {}}
 
 
 @pytest.mark.parametrize("case", [
@@ -244,16 +247,23 @@ def test_jobs_outside_the_fused_route_raise(system, case):
     another route's settings.  The cases since ported (the CNN rescore and
     sort orders, which without a scorer mean no CNN as in the JAX engine;
     lockstep MC; the async and warm line searches; the done_frac group
-    stop; fused_search="off" and non-vina terms, on the general path) no
-    longer raise: they dock and score."""
+    stop; fused_search="off" and non-vina terms, on the general path; flex
+    atoms, on the general path, and a ligand without rigid DOF) no longer
+    raise: they dock and score."""
     settings = dict(SETTINGS)
     sf = None
     lig = system["lig"]
     match = "ROADMAP.md"
+    if case == "flex":
+        lig = dataclasses.replace(lig, num_lig_atoms=lig.num_atoms - 2)
+    elif case == "covalent":
+        lig = dataclasses.replace(lig, has_rigid_dof=False)
     if case in _PORTED:
         settings.update(num_mc_steps=16, exhaustiveness=1, **_PORTED[case])
         sf = _vdw_sf() if case == "non_vina_terms" else None
         eng = DockingEngine(DockSettings(**settings), sf=sf, device="cpu")
+        assert eng._fused_route([lig]) == (case not in (
+            "fused_search_off", "non_vina_terms", "flex"))
         res = eng.dock_batch(system["rec"], [lig], system["center"],
                              system["size"], seed=0)[0]
         assert res and all(p.cnnscore == 0.0 for p in res)
@@ -270,10 +280,6 @@ def test_jobs_outside_the_fused_route_raise(system, case):
         match = "canonical_shapes"
     elif case == "cnn_in_loop":
         settings["cnn_scoring"] = "all"
-    elif case == "flex":
-        lig = dataclasses.replace(lig, num_lig_atoms=lig.num_atoms - 2)
-    elif case == "covalent":
-        lig = dataclasses.replace(lig, has_rigid_dof=False)
     eng = DockingEngine(DockSettings(**settings), sf=sf, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         eng.dock_batch(system["rec"], [lig], system["center"],

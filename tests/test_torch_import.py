@@ -30,7 +30,9 @@ _MODULES = ["gnina_tpu_torch", "gnina_tpu_torch.docking",
             "gnina_tpu_torch.models.scorer", "gnina_tpu_torch.cli",
             "gnina_tpu_torch.probes", "gnina_tpu_torch.ops.bfgs",
             "gnina_tpu_torch.ops._cuda", "gnina_tpu_torch.output",
-            "gnina_tpu_torch.scoring.atom_terms"]
+            "gnina_tpu_torch.scoring.atom_terms",
+            "gnina_tpu_torch.chem.smarts", "gnina_tpu_torch.chem.flexinfo",
+            "gnina_tpu_torch.chem.covalent"]
 
 
 @pytest.mark.parametrize("module", _MODULES)
