@@ -1284,7 +1284,10 @@ def phase_flex(seed, steps, cli_steps):
     at their input coordinates within 1e-4 A, every bond inside a flex
     residue at its input length within 1e-3 A, and the energy and
     intramolecular energy the flex-aware exact_split of its conf
-    recomputed on the CPU within 1e-3 kcal/mol.
+    recomputed on the CPU within 1e-3 kcal/mol, plus 0.005 per atom pair
+    within 2e-3 A^2 of the cutoff as in [5] and [8]: the pair terms stop
+    at the cutoff, so a pair there counts on one device and not the other
+    (one O-C pair at 8 A is 3.16e-3 kcal/mol of gauss2).
 
     [9b] cli.main jobs, 1 ligand x 8 chains, `cli_steps` steps: --flexdist
     with --out_flex and --full_flex_output, --flexres on the same
@@ -1366,8 +1369,12 @@ def phase_flex(seed, steps, cli_steps):
     d0 = np.linalg.norm(orig[bonds[:, 0]] - orig[bonds[:, 1]], axis=-1)
     heavy = cplx.movable_atoms > np.arange(cplx.num_atoms)
     heavy &= ~IS_HYDROGEN[cplx.types]
+    rc = np.asarray(pruned.coords, np.float64)
+    cut2 = eng.sf.cutoff ** 2
+    pairs = np.concatenate([np.asarray(cplx.pairs).reshape(-1, 2),
+                            np.asarray(cplx.other_pairs).reshape(-1, 2)])
     worst = dict(anchor=0.0, bond=0.0, energy=0.0, intramol=0.0)
-    n_poses = 0
+    n_poses, n_band, worst_band = 0, 0, 0.0
     for res in results:
         check(bool(res), "a flex ligand without poses")
         tors = np.zeros((len(res), m - 1), np.float32)
@@ -1391,15 +1398,31 @@ def phase_flex(seed, steps, cli_steps):
                                   float(np.abs(c[inflex] - orig[inflex]).max()))
             d = np.linalg.norm(c[bonds[:, 0]] - c[bonds[:, 1]], axis=-1)
             worst["bond"] = max(worst["bond"], float(np.abs(d - d0).max()))
-            worst["energy"] = max(worst["energy"],
-                                  abs(p.energy - float(e_cpu[i])))
-            worst["intramol"] = max(worst["intramol"],
-                                    abs(p.intramol - float(intra[i])))
+            # the pairs at the cutoff: movable heavy atoms (clamped into
+            # the box, as the inter energy takes them) with the receptor,
+            # and the intra and other pairs
+            h = np.clip(c[heavy], lo, hi)
+            d2 = np.concatenate([
+                ((h[:, None] - rc[None]) ** 2).sum(-1).ravel(),
+                ((c[pairs[:, 0]] - c[pairs[:, 1]]) ** 2).sum(-1)])
+            band = int((np.abs(d2 - cut2) < 2e-3).sum())
+            de = max(abs(p.energy - float(e_cpu[i])),
+                     abs(p.intramol - float(intra[i])))
+            check(de <= 1e-3 + 0.005 * band,
+                  f"pose energies vs the CPU's exact_split: energy "
+                  f"{p.energy} / {float(e_cpu[i])}, intramol {p.intramol} "
+                  f"/ {float(intra[i])} ({band} pairs at the cutoff)")
+            if band:
+                n_band += 1
+                worst_band = max(worst_band, de)
+            else:
+                worst["energy"] = max(worst["energy"],
+                                      abs(p.energy - float(e_cpu[i])))
+                worst["intramol"] = max(worst["intramol"],
+                                        abs(p.intramol - float(intra[i])))
         n_poses += len(res)
     check(worst["anchor"] <= 1e-4, f"an inflex anchor moved {worst}")
     check(worst["bond"] <= 1e-3, f"a flex bond changed length {worst}")
-    check(worst["energy"] <= 1e-3 and worst["intramol"] <= 1e-3,
-          f"pose energies vs the CPU's exact_split: {worst}")
     print(f"[9a] flex dock_batch (general path), {LIGANDS} ligands x "
           f"{EXHAUSTIVENESS} chains, {steps} steps, 20 A box: residues "
           f"{names} ({nf} flex atoms, {len(inflex)} inflex anchors), "
@@ -1412,7 +1435,8 @@ def phase_flex(seed, steps, cli_steps):
           f"{worst['anchor']:.1e} A, {len(bonds)} flex bonds within "
           f"{worst['bond']:.1e} A, energy and intramol the CPU's "
           f"exact_split within {worst['energy']:.1e} / "
-          f"{worst['intramol']:.1e} kcal/mol; best "
+          f"{worst['intramol']:.1e} kcal/mol ({worst_band:.1e} on the "
+          f"{n_band} poses with a pair within 2e-3 A^2 of the cutoff); best "
           f"{min(r[0].energy for r in results):.3f} kcal/mol; no kernel "
           f"launched | {smi_line()}", flush=True)
 
