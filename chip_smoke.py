@@ -44,7 +44,13 @@ chains, covalent ligands and --outputmin, which take the general path
 only: a flex dock_batch at full width on a receptor with real residues
 (FLEX_STEPS steps) and six cli.main jobs at FLEX_CLI_STEPS steps
 (--flexdist with --out_flex and --full_flex_output, --flexres, --flex, a
-covalent job, --minimize --outputmin 4, --no_lig --score_only).
+covalent job, --minimize --outputmin 4, --no_lig --score_only).  Phase
+[10] runs the CNN inside the search (general path only): a
+cnn_scoring='refinement' dock_batch at full width with the default
+ensemble (CNN_STEPS steps), the CNN objective on the card against the
+same code on the CPU, --minimize under refinement, and six cli.main jobs
+at CNN_CLI_STEPS steps (metrorescore, metrorefine, all, --minimize
+--cnn_scoring refinement, the empirical mix, and the CNN debug outputs).
 
 Phases print one line each; any failed check exits non-zero.  The line
 before the last is the kernel table as JSON (`launches` counts kernel
@@ -57,6 +63,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -93,14 +100,21 @@ OPS_PAIR_DERIV = 72
 LIGANDS, EXHAUSTIVENESS, MC_STEPS = 16, 8, 1024
 # phase [8]'s depth: the general path is a per-step loop of small torch
 # operations (about half a second a step at 128 lanes on an H100), so its
-# docks run 128 steps and its command-line jobs 32, not 1024 (PERF.md
-# section 4)
-GENERAL_STEPS, GENERAL_CLI_STEPS = 128, 32
+# docks run 64 steps (128 until [10] needed the time) and its command-line
+# jobs 32, not 1024 (PERF.md section 4)
+GENERAL_STEPS, GENERAL_CLI_STEPS = 64, 32
 # phase [9]'s depth: flex jobs take the general path only, at 0.7-1.5 s a
 # step at 128 lanes with four flex residues, so the flex dock is cut from
 # 1024 to 32 steps at full width and its command-line jobs to 8, to keep
 # [9] under 150 s (PERF.md section 4)
 FLEX_STEPS, FLEX_CLI_STEPS = 32, 8
+# phase [10]'s depth: the CNN in the loop adds a CNN evaluation of every
+# lane to each general-path step (Metropolis) and CNN minimisations of the
+# saved poses, so its dock is cut from 1024 to 8 MC steps at full width
+# (128 lanes, the three-model ensemble on 48^3 grids) and its command-line
+# jobs to 4 (at 16 steps the whole script took about 830 s on a slow host,
+# over the 800 s it must stay under; PERF.md section 4)
+CNN_STEPS, CNN_CLI_STEPS = 8, 4
 
 
 class Failure(Exception):
@@ -1582,6 +1596,344 @@ def phase_flex(seed, steps, cli_steps):
     return dict(dock_s=wall, populate_s=pop[0], cli=walls)
 
 
+def phase_cnn(seed, steps, cli_steps):
+    """[10] The CNN inside the search on the card (the general path: every
+    CNN-in-the-loop job with a scorer leaves the fused route; no kernel).
+
+    [10a] dock_batch at full width under cnn_scoring='refinement' (CNN
+    Metropolis, the saved poses refined on the CNN objective, the CNNscore
+    sort): 16 copies of the ligand x 8 chains in the 20 A box of the seed's
+    synthetic receptor, the default ensemble (dense_1_3, dense_1_3_PT_KD_3,
+    crossdock_default2018_KD_4; 28 channels on 48^3), `steps` MC steps.
+    Checks: _dock_general taken and no kernel launched; every pose finite,
+    its heavy atoms in the box, its energy the engine's exact rescore of its
+    conf within 1e-3 kcal/mol, its CNNscore and CNNaffinity
+    score_poses_multi's on its coordinates within 1e-3, the poses sorted by
+    CNNscore; on 2 poses the objective's value_p and deriv_p on the card
+    equal the same code on the CPU (value 1e-4 relative, gradient 1e-3 of
+    its largest component); minimize under refinement (at most 100
+    iterations a stage) from one ligand's input pose ends with a CNN
+    objective no higher than at its start (same fixed centre, +1e-4).
+
+    [10b] cli.main jobs, 1 ligand x 8 chains, `cli_steps` MC steps:
+    --cnn_scoring metrorescore, metrorefine, all (2 steps: a CNN BFGS for
+    every lane each step), --minimize --cnn_scoring refinement (at most
+    100 iterations a stage), refinement
+    with --cnn_mix_emp_force --cnn_mix_emp_energy --cnn_empirical_weight
+    0.5, and --score_only --cnn_outputxyz --cnn_outputdx
+    --cnn_gradient_check --cnn_verbose into a scratch directory (one .dx
+    file a channel of the first model, n^3 values each; one finite .xyz row
+    an atom; the gradient-check lines finite).  The gradient check's
+    central difference at the command line's step, 1e-2 A, is printed
+    beside its max relative error (not a check: the density's piecewise
+    tail puts ~1e-3 of truncation error into each component, larger than
+    2e-2 of the small ones); the analytic atom gradient is held instead to
+    a central difference at 1e-3 A, within 2e-2 of its largest
+    component."""
+    import io
+    import re
+    import tempfile
+
+    import torch
+
+    from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch import cli
+    from gnina_tpu_torch.chem.ingest import box_from_center_size
+    from gnina_tpu_torch.constants import IS_HYDROGEN
+    from gnina_tpu_torch.docking import DockingEngine, DockSettings, \
+        exact_split
+    from gnina_tpu_torch.models import debug_out
+    from gnina_tpu_torch.models.scorer import CNNScorer
+    from gnina_tpu_torch.ops import fused_dock as fd
+    from gnina_tpu_torch.ops.energy import Box, lane_ligands
+    from gnina_tpu_torch.types import Conf, initial_conf, pad_ligand, \
+        pad_receptor
+
+    t_phase = time.perf_counter()
+    rec, lig, center, size = fx.system(seed=seed, box=20.0)
+    ligs = [lig] * LIGANDS
+    lo, hi = box_from_center_size(center, size)
+    scorer = CNNScorer()
+    check([m_.name for m_ in scorer.models]
+          == ["dense_1_3", "dense_1_3_PT_KD_3", "crossdock_default2018_KD_4"]
+          and all(m_.grid_points == 48 and m_.num_channels == 28
+                  for m_ in scorer.models), "not the default ensemble")
+    settings = DockSettings(cnn_scoring="refinement", num_mc_steps=steps,
+                            exhaustiveness=EXHAUSTIVENESS)
+    eng = DockingEngine(settings, cnn_scorer=scorer)
+    check(eng.device.type == "cuda" and not eng._fused_route(ligs),
+          "a CNN-in-the-loop job on the fused route, or off the card")
+
+    # [10a] the dock, its parts timed with the card synchronised
+    spent = {"build": 0.0, "stages": 0.0, "rescore": 0.0}
+    calls = []
+
+    def timed_part(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t_
+            return out
+        return run
+
+    real_general = eng._dock_general
+    eng._dock_general = lambda *a, **kw: calls.append(1) or real_general(
+        *a, **kw)
+    eng._build_cnn_objective = timed_part("build", eng._build_cnn_objective)
+    eng._stages = timed_part("stages", eng._stages)
+    scorer.score_poses_multi = timed_part("rescore",
+                                          scorer.score_poses_multi)
+    pop, _ = timed_populate(eng)
+    torch.cuda.reset_peak_memory_stats()
+    results, wall, cnt = counted_dock(fd, eng, rec, ligs, center, size,
+                                      seed=seed)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("_dock_general", "_build_cnn_objective", "_stages",
+                 "_populate_cache"):
+        delattr(eng, name)
+    del scorer.score_poses_multi
+    check(calls == [1], "the refinement dock did not take _dock_general")
+    check(not any(cnt.launches.values()),
+          f"the CNN-in-the-loop dock launched kernels: {cnt.launches}")
+    check(len(pop) == 1, "the search grids were not populated once")
+    mc_s = wall - pop[0] - spent["build"] - spent["stages"] - spent["rescore"]
+
+    # every pose: finite, in the box, the engine's exact rescore, the
+    # ensemble's scores on its coordinates, sorted by CNNscore
+    dev = eng.device
+    ru = lambda x, k: max(-(-x // k) * k, k)
+    n, m = ru(lig.num_atoms, 8), ru(lig.num_nodes, 4)
+    pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                        margin=eng.sf.cutoff)
+    rec_d = pad_receptor(pruned.coords, pruned.types, pruned.charges,
+                         ru(len(pruned.types), 128), device=dev)
+    lig_d = pad_ligand(lig, n, m, ru(len(lig.pairs), 32), device=dev)
+    layers = ru(int(lig.layer.max()), 4)
+    efn = eng._make_efn(layers)
+    box = Box(lo=torch.as_tensor(lo, device=dev),
+              hi=torch.as_tensor(hi, device=dev))
+    heavy = ~IS_HYDROGEN[lig.types]
+    worst = dict(energy=0.0, score=0.0, affinity=0.0)
+    n_poses = 0
+    for res in results:
+        check(bool(res), "a ligand without poses")
+        sc_ = [p.cnnscore for p in res]
+        check(sc_ == sorted(sc_, reverse=True), "poses not sorted by CNNscore")
+        tors = np.zeros((len(res), m - 1), np.float32)
+        for i, p in enumerate(res):
+            tors[i, :len(p.conf_torsions)] = p.conf_torsions
+        conf = Conf(*[torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                      for x in ([p.conf_position for p in res],
+                                [p.conf_orientation for p in res], tors)])
+        with torch.no_grad():
+            inter, _ = exact_split(efn, lig_d, rec_d, conf, box, 1e3,
+                                   [1000.0] * 3)
+        e_own = eng._conf_independent(lig, inter.cpu().numpy())
+        s_, a_, _l, _v = scorer.score_poses_multi(
+            rec, [(lig, np.stack([p.coords for p in res]))])[0]
+        for i, p in enumerate(res):
+            c = np.asarray(p.coords, np.float64)
+            check(bool(np.isfinite(c).all()) and np.isfinite(p.energy)
+                  and np.isfinite(p.cnnscore), "a non-finite pose")
+            check(bool(((c[heavy] >= lo - 1e-3)
+                        & (c[heavy] <= hi + 1e-3)).all()),
+                  "a pose outside the box")
+            worst["energy"] = max(worst["energy"],
+                                  abs(p.energy - float(e_own[i])))
+            worst["score"] = max(worst["score"], abs(p.cnnscore - s_[i]))
+            worst["affinity"] = max(worst["affinity"],
+                                    abs(p.cnnaffinity - a_[i]))
+        n_poses += len(res)
+    check(max(worst.values()) <= 1e-3, f"poses vs their rescores: {worst}")
+
+    # the objective on the card against the same code on the CPU, 2 poses
+    cpu = DockingEngine(settings, cnn_scorer=CNNScorer(device="cpu"),
+                        device="cpu")
+    two = results[0][:2]
+    vals = {}
+    for e_, d_ in ((eng, dev), (cpu, torch.device("cpu"))):
+        b_ = Box(lo=torch.as_tensor(lo, device=d_),
+                 hi=torch.as_tensor(hi, device=d_))
+        obj = e_._build_cnn_objective(rec, b_, layers)
+        lig2 = lane_ligands([pad_ligand(lig, n, m, ru(len(lig.pairs), 32),
+                                        device=d_)] * 2,
+                            torch.zeros(2, dtype=torch.long, device=d_))
+        t2 = np.zeros((2, m - 1), np.float32)
+        for i, p in enumerate(two):
+            t2[i, :len(p.conf_torsions)] = p.conf_torsions
+        c2 = Conf(*[torch.as_tensor(np.asarray(x, np.float32), device=d_)
+                    for x in ([p.conf_position for p in two],
+                              [p.conf_orientation for p in two], t2)])
+        with torch.no_grad():
+            cen = obj["center_of"](lig2, c2)
+            g_ = obj["prep"](cen)
+            v_ = obj["value_p"](g_, lig2, c2, cen, 10.0)
+        _, gr = obj["deriv_p"](g_, lig2, c2, cen, 10.0)
+        vals[d_.type] = (v_.cpu().double(), gr.cpu().double())
+    v_err = float(((vals["cuda"][0] - vals["cpu"][0]).abs()
+                   / vals["cpu"][0].abs()).max())
+    g_scale = float(vals["cpu"][1].abs().max())
+    g_err = max_err(vals["cuda"][1], vals["cpu"][1]) / g_scale
+    check(v_err <= 1e-4 and g_err <= 1e-3,
+          f"the CNN objective on the card vs the CPU: value {v_err:.2e} "
+          f"relative, gradient {g_err:.2e} of its largest component")
+
+    # minimize under refinement from the input pose, its objective at the
+    # fixed centre before and after
+    meng = DockingEngine(dataclasses.replace(settings, minimize_iters=100),
+                         cnn_scorer=scorer)
+    torch.cuda.synchronize()
+    t_ = time.perf_counter()
+    mres = meng.minimize(rec, lig)
+    torch.cuda.synchronize()
+    min_s = time.perf_counter() - t_
+    mc_, msz = meng._movable_box(lig, None, None)
+    ml_d, _mr, mbox, mlayers = meng._prepare(rec, lig, mc_, msz)
+    mobj = meng._build_cnn_objective(rec, mbox, mlayers)
+    ml1 = lane_ligands([ml_d], torch.zeros(1, dtype=torch.long, device=dev))
+    c0 = Conf(*[x[None] for x in initial_conf(lig, ml_d.num_torsion_slots,
+                                              device=dev)])
+    t1 = np.zeros((1, ml_d.num_torsion_slots), np.float32)
+    t1[0, :len(mres.conf_torsions)] = mres.conf_torsions
+    c1 = Conf(*[torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                for x in ([mres.conf_position], [mres.conf_orientation], t1)])
+    with torch.no_grad():
+        mcen = mobj["center_of"](ml1, c0)
+        mg = mobj["prep"](mcen)
+        v0, v1 = (float(mobj["value_p"](mg, ml1, c_, mcen, 10.0)[0])
+                  for c_ in (c0, c1))
+    check(np.isfinite(mres.energy) and v1 <= v0 + 1e-4,
+          f"minimize under refinement: objective {v0} -> {v1}")
+    print(f"[10a] cnn_scoring='refinement' dock_batch (general path), "
+          f"{LIGANDS} ligands x {EXHAUSTIVENESS} chains, {steps} steps, 20 A "
+          f"box, default ensemble (3 models, 28 channels x 48^3): "
+          f"{wall:.2f} s wall: populate {pop[0]:.2f} s, MC "
+          f"{mc_s:.2f} s ({mc_s / steps * 1e3:.1f} ms a step, CNN "
+          f"Metropolis included), CNN refinement of the saved poses "
+          f"{spent['stages']:.2f} s, objective set-up {spent['build']:.2f} "
+          f"s, CNN rescore {spent['rescore']:.2f} s; peak memory "
+          f"{peak_gb:.2f} GiB; {n_poses} poses, finite, in the box, sorted "
+          f"by CNNscore, energies the engine's exact rescore within "
+          f"{worst['energy']:.1e} kcal/mol, CNNscore / CNNaffinity the "
+          f"ensemble's within {worst['score']:.1e} / "
+          f"{worst['affinity']:.1e}; best energy "
+          f"{min(p.energy for r_ in results for p in r_):.3f} kcal/mol, best "
+          f"CNNscore {max(r_[0].cnnscore for r_ in results):.4f}; objective "
+          f"card vs CPU on 2 poses: value {v_err:.1e} relative, gradient "
+          f"{g_err:.1e} of its largest; minimize under refinement "
+          f"{min_s:.2f} s, objective {v0:.4f} -> {v1:.4f}, energy "
+          f"{mres.energy:.3f}; no kernel launched | {smi_line()}",
+          flush=True)
+    t_10a = time.perf_counter() - t_phase
+
+    # [10b] the command line
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cnn_")
+    path = lambda name: os.path.join(tmp, name)
+    with open(path("rec.pdb"), "w") as f:
+        f.write(fx.receptor_pdb_text(fx.ligand_center(lig), seed))
+    with open(fx.LIGAND_SDF) as f:
+        first = f.read().split("$$$$\n")[0] + "$$$$\n"
+    with open(path("one.sdf"), "w") as f:
+        f.write(first)
+    common = ["-r", path("rec.pdb"), "-l", path("one.sdf"), "--seed",
+              str(seed), "-q"]
+    dock = ["--autobox_ligand", path("one.sdf"), "--exhaustiveness",
+            str(EXHAUSTIVENESS), "--num_mc_steps", str(cli_steps)]
+    jobs = {
+        "metrorescore": dock + ["--cnn_scoring", "metrorescore"],
+        "metrorefine": dock + ["--cnn_scoring", "metrorefine"],
+        "all": dock[:-1] + ["2", "--cnn_scoring", "all"],
+        "minimize": ["--minimize", "--cnn_scoring", "refinement",
+                     "--minimize_iters", "100"],
+        "mix": dock + ["--cnn_scoring", "refinement", "--cnn_mix_emp_force",
+                       "--cnn_mix_emp_energy", "--cnn_empirical_weight",
+                       "0.5"],
+        "debug": ["--score_only", "--cnn_outputxyz", "--cnn_outputdx",
+                  "--cnn_gradient_check", "--cnn_verbose", "--cnn_xyzprefix",
+                  path("dbg")],
+    }
+    walls, notes = {}, {}
+    for name, flags in jobs.items():
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        rc = cli.main(common + flags + ["-o", path(f"{name}.sdf"), "--log",
+                                        path(f"{name}.log")])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t_
+        check(rc == 0, f"cli.main {name}: rc {rc}")
+        with open(path(f"{name}.sdf")) as f:
+            text = f.read()
+        aff = [float(v) for v in re.findall(
+            r">  <minimizedAffinity>\n(\S+)", text)]
+        cnn = [float(v) for v in re.findall(r">  <CNNscore>\n(\S+)", text)]
+        check(text.count("$$$$") == len(aff) == len(cnn) >= 1
+              and np.isfinite(aff).all() and np.isfinite(cnn).all(),
+              f"cli.main {name}: poses without finite minimizedAffinity and "
+              "CNNscore tags")
+        notes[name] = (f"{len(aff)} poses, best affinity {min(aff):.3f}, "
+                       f"top CNNscore {cnn[0]:.4f}")
+    # the debug outputs
+    m0 = scorer.models[0]
+    nch, npts = m0.num_channels, m0.grid_points
+    dx = sorted(f for f in os.listdir(tmp) if f.startswith("dbg_grad_")
+                and f.endswith(".dx"))
+    check(len(dx) == nch, f"{len(dx)} .dx files, not {nch}")
+    for f in dx:
+        with open(path(f)) as fh:
+            body = fh.read().split("data follows\n", 1)[1]
+        check(len(body.split()) == npts ** 3, f"{f}: not {npts}^3 values")
+    rows = []
+    for f in ("dbg_lig.xyz", "dbg_rec.xyz"):
+        with open(path(f)) as fh:
+            lines = fh.read().splitlines()
+        v = np.array([[float(x) for x in ln.split()[1:]] for ln in lines[2:]])
+        check(int(lines[0]) == len(v) and v.shape[1:] == (6,)
+              and np.isfinite(v).all(), f"{f}: not one finite row an atom")
+        rows.append(len(v))
+    check(rows[0] == lig.num_atoms, "the ligand's .xyz: not one row an atom")
+    with open(path("debug.log")) as fh:
+        log_text = fh.read()
+    pairs = np.array(re.findall(
+        r"analytic (\S+) numeric (\S+) rel", log_text), float)
+    rel = re.findall(r"gradient_check max relative error: (\S+)", log_text)
+    check(pairs.shape == (9, 2) and np.isfinite(pairs).all() and rel,
+          "the gradient check's log lines")
+    # the analytic atom gradient against a central difference at 1e-3 A
+    coords = np.asarray(lig.orig_coords, np.float32)
+    cen = coords.mean(axis=0)
+    rc_, rt_, rm_ = scorer._receptor_arrays(
+        cli.ingest.Receptor.from_file(path("rec.pdb")), cen[None])
+    fd_errs = {}
+    for eps in (1e-3, 3e-3):
+        fine = io.StringIO()
+        debug_out.gradient_check(scorer, rc_, rt_, rm_, lig, coords, cen,
+                                 fine, eps=eps)
+        fp = np.array(re.findall(r"analytic (\S+) numeric (\S+) rel",
+                                 fine.getvalue()), float)
+        fd_errs[eps] = float(np.abs(fp[:, 0] - fp[:, 1]).max()
+                             / np.abs(fp[:, 0]).max())
+    fd_err = fd_errs[1e-3]
+    check(fd_err <= 2e-2, f"the CNN atom gradient vs a central difference "
+          f"at 1e-3 A: {fd_err:.2e} of its largest component")
+    notes["debug"] += (f", {len(dx)} .dx files of {npts}^3, .xyz rows "
+                       f"{rows[0]} / {rows[1]}, gradient check at 1e-2 A: "
+                       f"max relative error {float(rel[0]):.2e} (max |d| "
+                       f"{np.abs(pairs[:, 0] - pairs[:, 1]).max():.2e} of "
+                       f"{np.abs(pairs[:, 0]).max():.2e}); at 1e-3 A: "
+                       f"{fd_err:.2e} of the largest component (at 3e-3 "
+                       f"A: {fd_errs[3e-3]:.2e})")
+    print("[10b] cli.main CNN-in-the-loop jobs, 1 ligand x "
+          f"{EXHAUSTIVENESS} chains, {cli_steps} steps (all: 2): "
+          + "; ".join(f"{k} rc 0 in {walls[k]:.2f} s, {notes[k]}"
+                      for k in jobs), flush=True)
+    print(f"[10] {t_10a:.1f} s for [10a], "
+          f"{time.perf_counter() - t_phase - t_10a:.1f} s for [10b]",
+          flush=True)
+    return dict(dock_s=wall, cli=walls)
+
+
 def read_counts(fd):
     """Every wrapper's counts as dicts by kernel name: kernel launches (in
     all, by the call's lane count, by mode, with done_frac < 1) and wrapper
@@ -2527,6 +2879,9 @@ def main():
 
     # ---- 9. flex residues, covalent ligands, --outputmin (no kernel) -------
     phase_flex(args.seed, FLEX_STEPS, FLEX_CLI_STEPS)
+
+    # ---- 10. the CNN inside the search (no kernel) -------------------------
+    phase_cnn(args.seed, CNN_STEPS, CNN_CLI_STEPS)
 
     table = {"kernels": [dict(
         name=row["name"], route="cuda",

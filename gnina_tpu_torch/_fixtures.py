@@ -7,6 +7,9 @@
   ratios, filling a cube around the ligand with a spherical cavity carved
   at the ligand's centre.  It is written as PDB text and read back through
   Receptor.from_file, the normal entry point.
+- A toy CNN made from a seed (toy_cnn): the default typers' 28 channels on
+  a 13^3 grid at 1 A, one convolution, relu, a max pool and the pose and
+  affinity heads, as a converted model's spec and numpy weights.
 """
 
 from __future__ import annotations
@@ -346,3 +349,43 @@ def flex_pdbqt_text(rec: ingest.Receptor, keys) -> str:
             branch(int(root), f_n)
         out.append(f"END_RES {fr.resname} {key[0]} {key[1]:3d}")
     return "\n".join(out) + "\n"
+
+
+def toy_cnn(seed: int = 0, width: int = 4):
+    """(spec, params) of a small converted CNN made from `seed`: input
+    (B, 28, 13, 13, 13), a 3^3 convolution to `width` channels, relu, a 2^3
+    max pool, and the linear pose (log-softmax) and affinity heads, in the
+    op-list format of the repository's converted models (metadata:
+    resolution 1 A, dimension 12 A, the default typers)."""
+    rng = np.random.default_rng(seed)
+    flat = width * 6 ** 3
+    params = {
+        "cw": rng.normal(scale=0.2, size=(width, 28, 3, 3, 3)),
+        "cb": rng.normal(scale=0.05, size=(width,)),
+        "pw": rng.normal(scale=0.1, size=(2, flat)),
+        "pb": np.zeros(2),
+        "aw": rng.normal(scale=0.1, size=(1, flat)),
+        "ab": np.zeros(1)}
+    params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+
+    def op(kind, out, *args):
+        return {"op": kind, "out": out, "in": [list(a) for a in args]}
+
+    ops = [
+        op("aten::_convolution", "c", ("ref", "x"), ("param", "cw"),
+           ("param", "cb"), ("const", [1, 1, 1]), ("const", [1, 1, 1]),
+           ("const", [1, 1, 1])),
+        op("aten::relu", "r", ("ref", "c")),
+        op("aten::max_pool3d", "m", ("ref", "r"), ("const", [2, 2, 2]),
+           ("const", [2, 2, 2]), ("const", [0, 0, 0])),
+        op("aten::view", "f", ("ref", "m"), ("const", [-1, flat])),
+        op("aten::linear", "p", ("ref", "f"), ("param", "pw"),
+           ("param", "pb")),
+        op("aten::log_softmax", "pose", ("ref", "p"), ("const", 1)),
+        op("aten::linear", "a", ("ref", "f"), ("param", "aw"),
+           ("param", "ab")),
+        op("aten::squeeze", "aff", ("ref", "a"), ("const", -1))]
+    spec = {"input": "x", "ops": ops,
+            "output": [["ref", "pose"], ["ref", "aff"]],
+            "metadata": {"resolution": 1.0, "dimension": 12.0}}
+    return spec, params

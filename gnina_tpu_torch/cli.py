@@ -17,9 +17,9 @@ Differences from the JAX CLI, all forced by the port:
   are shared, and the port's kernels take their shapes at run time.
 - Buckets are docked in a plain loop; `--no_compile_ahead` is accepted
   without effect (its two worker threads overlap XLA compiles).
-- Flags whose modules are not ported yet (the CNN inside the search, the
-  tools, multi-GPU) parse and then raise NotImplementedError naming their
-  ROADMAP.md item, before any work.
+- Flags whose modules are not ported yet (the tools, multi-GPU) parse and
+  then raise NotImplementedError naming their ROADMAP.md item, before any
+  work.
 
 The GNINA_TPU_FUSED_* environment knobs keep their names.
 """
@@ -272,7 +272,6 @@ class Tee:
 
 # ROADMAP.md items of the modules still to port, by number
 _ITEMS = {
-    13: "Queue 1 item 13: CNN inside the search",
     14: "Queue 1 item 14: multi-GPU",
     15: "Queue 1 item 15: tools",
 }
@@ -282,14 +281,6 @@ def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose module is not ported yet,
     naming its ROADMAP.md item; nothing is silently ignored."""
     checks = [
-        (args.cnn_scoring in ("refinement", "metrorescore", "metrorefine",
-                              "all"), f"--cnn_scoring {args.cnn_scoring}", 13),
-        (args.cnn_mix_emp_force or args.cnn_mix_emp_energy,
-         "--cnn_mix_emp_*", 13),
-        (args.cnn_outputdx, "--cnn_outputdx", 13),
-        (args.cnn_outputxyz, "--cnn_outputxyz", 13),
-        (args.cnn_gradient_check, "--cnn_gradient_check", 13),
-        (args.cnn_verbose, "--cnn_verbose", 13),
         (bool(args.cnn_model), "--cnn_model (TorchScript conversion)", 15),
         ((args.dist_nprocs or 1) > 1, "--dist_nprocs > 1", 14),
     ]
@@ -297,6 +288,36 @@ def check_ported(args) -> None:
         if hit:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md, {_ITEMS[item]})")
+
+
+def _cnn_debug_outputs(args, cnn, rec, lig, result, log):
+    """--cnn_outputxyz/--cnn_outputdx/--cnn_gradient_check on the top pose
+    (main.cpp:1007,1030-1033; see models/debug_out.py)."""
+    from gnina_tpu_torch.models import debug_out
+
+    coords = np.asarray(result.coords, np.float32)
+    if cnn.fixed_center is not None:
+        center = np.asarray(cnn.fixed_center, np.float32)
+    else:
+        center = coords.mean(axis=0)
+    rec_coords, rec_types, rec_mask = cnn._receptor_arrays(rec, center[None])
+    prefix = args.cnn_xyzprefix
+    if args.cnn_outputxyz:
+        lg, rg = debug_out.atom_gradients(cnn, rec_coords, rec_types,
+                                          rec_mask, lig, coords, center)
+        debug_out.write_gradient_xyz(f"{prefix}_lig.xyz", lig.types,
+                                     coords, lg)
+        debug_out.write_gradient_xyz(f"{prefix}_rec.xyz",
+                                     rec_types[rec_mask],
+                                     rec_coords[rec_mask], rg[rec_mask])
+        log.write(f"Wrote {prefix}_lig.xyz / {prefix}_rec.xyz\n")
+    if args.cnn_outputdx:
+        debug_out.write_grid_gradient_dx(prefix, cnn, rec_coords, rec_types,
+                                         rec_mask, lig, coords, center,
+                                         log=log)
+    if args.cnn_gradient_check:
+        debug_out.gradient_check(cnn, rec_coords, rec_types, rec_mask, lig,
+                                 coords, center, log)
 
 
 def _torch_device(spec):
@@ -450,7 +471,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
                                args.cnn_center_z], np.float32)
         cnn = CNNScorer(model_names=args.cnn or None,
                         rotations=args.cnn_rotations, seed=args.seed,
-                        center=center, device=dev)
+                        center=center, device=dev, verbose=args.cnn_verbose)
 
     user_grid = None
     ug_box = None
@@ -672,6 +693,10 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             results = engine.dock(rec, lig, center, box_size,
                                   seed=args.seed)
             _write_pose_table(log, results)
+        if cnn is not None and results and (
+                args.cnn_outputxyz or args.cnn_outputdx
+                or args.cnn_gradient_check):
+            _cnn_debug_outputs(args, cnn, rec, lig, results[0], log)
         if args.out or args.atom_terms:
             text, tables = render_poses(lig, results)
             if args.out:

@@ -7,9 +7,11 @@ Counterpart of the JAX package's gnina_tpu/models/scorer.py:
 - models sharing the same typer/grid settings share voxelized grids;
 - the receptor and the ligand are voxelized apart and added (densities are
   additive and their channel ranges disjoint), the receptor through the
-  x-sorted per-slab atom window.
-
-CNN losses as minimisation objectives (make_loss_fn*) are not ported yet.
+  x-sorted per-slab atom window;
+- the CNN losses as minimisation objectives (make_loss_fn*) take a batch of
+  poses with a grid centre each, where the JAX functions take one pose and
+  are vmapped; their gradients with respect to the atom coordinates come
+  from autograd through the voxelizer and the network.
 """
 
 from __future__ import annotations
@@ -52,6 +54,29 @@ def _pose_from_outputs(model: CNNModel, outputs):
     return pose, affinity, loss
 
 
+def _rec_typing(m0: CNNModel, rec_types):
+    """Receptor atoms' (channels, radii) under m0's receptor typer."""
+    dev = rec_types.device
+    return (torch.as_tensor(m0.rec_typer.table, device=dev)[rec_types],
+            torch.as_tensor(m0.rec_typer.radii, dtype=torch.float32,
+                            device=dev)[rec_types])
+
+
+def _lig_typing(m0: CNNModel, lig_types):
+    """Ligand atoms' (channels after the receptor's, radii) under m0's
+    ligand typer; channel -1 (untyped) stays -1."""
+    dev = lig_types.device
+    raw = torch.as_tensor(m0.lig_typer.table, device=dev)[lig_types]
+    chan = torch.where(raw >= 0, raw + m0.rec_typer.num_channels, -1)
+    return chan, torch.as_tensor(m0.lig_typer.radii, dtype=torch.float32,
+                                 device=dev)[lig_types]
+
+
+def _grid_kw(m0: CNNModel):
+    return dict(num_channels=m0.num_channels, npoints=m0.grid_points,
+                resolution=m0.resolution, radius_scale=m0.radius_scale)
+
+
 class CNNScorer:
     """Scores ligand poses against a rigid receptor with a CNN ensemble.
 
@@ -63,7 +88,7 @@ class CNNScorer:
                  rotations: int = 0, seed: int = 0,
                  center: Optional[np.ndarray] = None, device=None,
                  models: Optional[Sequence[CNNModel]] = None,
-                 models_dir: Optional[str] = None):
+                 models_dir: Optional[str] = None, verbose: bool = False):
         self.device = resolve_device(device)
         if models is not None:
             self.models: List[CNNModel] = list(models)
@@ -74,6 +99,7 @@ class CNNScorer:
         self.rotations = max(rotations, 1)
         self.seed = seed
         self.fixed_center = center
+        self.verbose = verbose      # --cnn_verbose: kept, as in JAX, unused
 
     # -- host-side preparation ------------------------------------------------
 
@@ -209,6 +235,127 @@ class CNNScorer:
         s, a, _l, v = self.score_poses(rec, lig, coords[None])
         return float(s[0]), float(a[0]), float(v[0])
 
+    # -- CNN as minimization objective (non_cache_cnn equivalent) ---------------
+
+    def _group_losses(self, ids, grids):
+        """Sum over the models `ids` of one voxelization group of their
+        (B,) losses on the grids."""
+        total = 0.0
+        for mi in ids:
+            m = self.models[mi]
+            total = total + _pose_from_outputs(m, m.module(grids))[2]
+        return total
+
+    def _lig_inputs(self, lig_types, lig_mask, b: int):
+        dev = self.device
+        lig_types = torch.as_tensor(lig_types, device=dev).long()
+        lig_mask = torch.as_tensor(lig_mask, device=dev)
+        return (lig_types.expand(b, lig_types.shape[-1]),
+                lig_mask.expand(b, lig_mask.shape[-1]))
+
+    def make_loss_fn_generic(self, rec_coords, rec_types, rec_mask):
+        """Returns loss(lig_coords (B, N, 3), lig_types (N,) or (B, N),
+        lig_mask likewise, centers (B, 3)) -> (B,) mean CNN loss over the
+        ensemble, the receptor and the ligand voxelized together.
+
+        The grid centre is an argument: during BFGS refinement it is FIXED
+        at the value set at refinement start (DLScorer::
+        set_center_from_model + non_cache_cnn::adjust_center), while
+        Metropolis evaluations re-centre on the current pose every call.
+        Differentiable with respect to lig_coords, and to rec_coords when
+        it is a tensor that requires grad (the reference's gmaker.backward
+        + loss.backward chain, torch_model.cpp:200-221)."""
+        dev = self.device
+        rec_c = torch.as_tensor(rec_coords, dtype=torch.float32, device=dev)
+        rec_t = torch.as_tensor(rec_types, device=dev).long()
+        rec_m = torch.as_tensor(rec_mask, device=dev)
+        groups = self._groups()
+
+        def loss_fn(lig_coords, lig_types, lig_mask, centers):
+            b = lig_coords.shape[0]
+            lig_t, lig_m = self._lig_inputs(lig_types, lig_mask, b)
+            total = 0.0
+            for ids in groups:
+                grids = self.voxelize_group(
+                    self.models[ids[0]], rec_c, rec_t, rec_m, lig_coords,
+                    lig_t, lig_m, centers, win=0)
+                total = total + self._group_losses(ids, grids)
+            return total / len(self.models)
+
+        return loss_fn
+
+    def make_loss_fn_split(self, rec_coords, rec_types, rec_mask):
+        """Receptor/ligand-split variant of make_loss_fn_generic.
+
+        Returns (prep, loss_fn):
+          prep(centers (B, 3)) -> tuple of (B, C, n, n, n) RECEPTOR density
+            grids, one per voxelization group (_groups), ligand channels
+            zero; no gradient;
+          loss_fn(rec_grids, lig_coords (B, N, 3), lig_types, lig_mask,
+            centers) -> (B,) mean CNN loss, voxelizing ONLY the ligand
+            atoms and adding the prepared receptor grids.
+
+        Gaussian densities are additive and the rec/lig channel ranges are
+        disjoint (torch_model.cpp:16-46 channel maps), so grid(rec+lig) ==
+        grid(rec) + grid(lig).  The receptor is rigid and the grid centre is
+        fixed for one BFGS refinement (non_cache_cnn::adjust_center), so
+        the receptor grid is prepared once per refinement.  The receptor
+        goes through the x-sorted per-slab window (voxelize_windowed);
+        masked rows are dropped first, as they add nothing."""
+        dev = self.device
+        rc, rt, rm = (np.asarray(x.detach().cpu() if torch.is_tensor(x)
+                                 else x) for x in (rec_coords, rec_types,
+                                                   rec_mask))
+        rm = rm.astype(bool)
+        order = np.argsort(rc[rm][:, 0], kind="stable")
+        rc = np.asarray(rc[rm][order], np.float32)
+        rt = np.asarray(rt[rm][order], np.int64)
+        max_reach = max(
+            1.5 * float(np.max(m.rec_typer.radii)) * m.radius_scale
+            + m.resolution for m in self.models)
+        win = slab_window_size(rc[:, 0], max_reach)
+        rec_c = torch.as_tensor(rc, device=dev)
+        rec_t = torch.as_tensor(rt, device=dev)
+        rec_m = torch.ones(len(rt), dtype=torch.bool, device=dev)
+        groups = self._groups()
+
+        def prep(centers):
+            centers = centers.detach()
+            grids = []
+            with torch.no_grad():
+                for ids in groups:
+                    m0 = self.models[ids[0]]
+                    if len(rt):
+                        grids.append(self.receptor_grids(
+                            m0, rec_c, rec_t, rec_m, centers, win))
+                    else:
+                        n = m0.grid_points
+                        grids.append(torch.zeros(
+                            (centers.shape[0], m0.num_channels, n, n, n),
+                            device=dev))
+            return tuple(grids)
+
+        def loss_fn(rec_grids, lig_coords, lig_types, lig_mask, centers):
+            b = lig_coords.shape[0]
+            lig_t, lig_m = self._lig_inputs(lig_types, lig_mask, b)
+            total = 0.0
+            for ids, rec_g in zip(groups, rec_grids):
+                grids = rec_g + self.ligand_grids(
+                    self.models[ids[0]], lig_coords, lig_t, lig_m, centers)
+                total = total + self._group_losses(ids, grids)
+            return total / len(self.models)
+
+        return prep, loss_fn
+
+    def make_loss_fn(self, rec_coords, rec_types, rec_mask, lig_types):
+        """Per-ligand convenience wrapper over make_loss_fn_generic."""
+        generic = self.make_loss_fn_generic(rec_coords, rec_types, rec_mask)
+
+        def loss_fn(lig_coords, lig_mask, centers):
+            return generic(lig_coords, lig_types, lig_mask, centers)
+
+        return loss_fn
+
     @property
     def max_dimension(self) -> float:
         return max(m.dimension for m in self.models)
@@ -233,24 +380,15 @@ class CNNScorer:
         x-sorted window (when win) plus the ligand; else (B, 3, 3)
         matrices that turn each complex about its grid center, everything
         through the plain voxelizer."""
-        dev = centers.device
-        nrec = m0.rec_typer.num_channels
-        rec_chan = torch.as_tensor(m0.rec_typer.table, device=dev)[rec_types]
-        rec_radii = torch.as_tensor(m0.rec_typer.radii, dtype=torch.float32,
-                                    device=dev)[rec_types]
-        lig_chan_raw = torch.as_tensor(m0.lig_typer.table,
-                                       device=dev)[lig_types_b]
-        lig_chan = torch.where(lig_chan_raw >= 0, lig_chan_raw + nrec, -1)
-        lig_radii = torch.as_tensor(m0.lig_typer.radii, dtype=torch.float32,
-                                    device=dev)[lig_types_b]
-        kw = dict(num_channels=m0.num_channels, npoints=m0.grid_points,
-                  resolution=m0.resolution, radius_scale=m0.radius_scale)
-        b = centers.shape[0]
         if rotation is None and win:
-            grids = voxelize_windowed(rec_coords, rec_chan, rec_radii,
-                                      rec_mask, centers, window=win, **kw)
-            return grids + voxelize_batch(lig_coords_b, lig_chan, lig_radii,
-                                          lig_mask_b, centers, **kw)
+            return (self.receptor_grids(m0, rec_coords, rec_types, rec_mask,
+                                        centers, win)
+                    + self.ligand_grids(m0, lig_coords_b, lig_types_b,
+                                        lig_mask_b, centers))
+        rec_chan, rec_radii = _rec_typing(m0, rec_types)
+        lig_chan, lig_radii = _lig_typing(m0, lig_types_b)
+        kw = _grid_kw(m0)
+        b = centers.shape[0]
         rec_xyz = rec_coords[None].expand(b, -1, -1)
         lig_xyz = lig_coords_b
         if rotation is not None:
@@ -265,6 +403,24 @@ class CNNScorer:
             torch.cat([rec_radii[None].expand(b, k), lig_radii], 1),
             torch.cat([rec_mask[None].expand(b, k), lig_mask_b], 1),
             centers, **kw)
+
+    @staticmethod
+    def receptor_grids(m0: CNNModel, rec_coords, rec_types, rec_mask,
+                       centers, win: int):
+        """(B, C, n, n, n) grids of the receptor alone (sorted by x) at B
+        centers through the per-slab window, under m0's settings."""
+        rec_chan, rec_radii = _rec_typing(m0, rec_types)
+        return voxelize_windowed(rec_coords, rec_chan, rec_radii, rec_mask,
+                                 centers, window=win, **_grid_kw(m0))
+
+    @staticmethod
+    def ligand_grids(m0: CNNModel, lig_coords_b, lig_types_b, lig_mask_b,
+                     centers):
+        """(B, C, n, n, n) grids of B ligand poses alone (their channels
+        after the receptor's), under m0's settings."""
+        lig_chan, lig_radii = _lig_typing(m0, lig_types_b)
+        return voxelize_batch(lig_coords_b, lig_chan, lig_radii, lig_mask_b,
+                              centers, **_grid_kw(m0))
 
     def ensemble_forward(self, rec_coords, rec_types, rec_mask, lig_coords_b,
                          lig_types_b, lig_mask_b, centers, win: int,

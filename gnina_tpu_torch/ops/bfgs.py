@@ -22,6 +22,7 @@ runs ops/ssd.py instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -50,22 +51,39 @@ def _where_conf(mask, a: Conf, b: Conf) -> Conf:
     return Conf(*[torch.where(mask[:, None], x, y) for x, y in zip(a, b)])
 
 
-def fast_line_search(f_val: Callable, x: Conf, g, f0,
-                     p) -> LineSearchResult:
+def fast_line_search(f_val: Callable, x: Conf, g, f0, p,
+                     lazy: bool = False) -> LineSearchResult:
     """Backtracking Armijo search (bfgs.h:73-91): up to 10 halvings.
 
     The ten step sizes are known in advance (alpha = 0.5^k), so the trials
     are one f_val call on (10, B) confs and the first acceptable alpha is
     selected: the reference's sequential loop's result.  If none is
     accepted the reference keeps the LAST trial's point but returns alpha
-    after a final halving (0.5^10)."""
+    after a final halving (0.5^10).
+
+    lazy=True evaluates trial k only for the poses whose trials 0..k-1
+    all failed, as f_val(confs (R, ...), rows (R,)) with rows the poses'
+    indices in the batch: the same result for an objective whose
+    evaluation costs more than a batched call saves (the CNN)."""
     c0 = 1e-4
     pg = torch.sum(p * g, dim=-1)
     alphas = 0.5 ** torch.arange(10, dtype=torch.float32, device=f0.device)
     xs = conf_increment(Conf(*[v.expand((10,) + v.shape) for v in x]),
                         p.expand((10,) + p.shape), alphas[:, None])
-    f1s = f_val(xs)                                            # (10, B)
-    accept = (f1s - f0) < c0 * alphas[:, None] * pg
+    bound = c0 * alphas[:, None] * pg
+    if lazy:
+        f1s = torch.full(bound.shape, float("inf"), device=f0.device)
+        search = torch.ones_like(f0, dtype=torch.bool)
+        for k in range(10):
+            rows = torch.nonzero(search)[:, 0]
+            if not len(rows):
+                break
+            f1 = f_val(Conf(*[v[k, rows] for v in xs]), rows)
+            f1s[k, rows] = f1
+            search[rows] = ~((f1 - f0[rows]) < bound[k, rows])
+    else:
+        f1s = f_val(xs)                                        # (10, B)
+    accept = (f1s - f0) < bound
     any_ok = accept.any(0)
     idx = torch.where(any_ok, torch.argmax(accept.to(torch.int8), 0), 9)
     cols = torch.arange(f0.shape[0], device=f0.device)
@@ -162,11 +180,14 @@ def conf_unstore(row, t: int) -> Conf:
 
 def bfgs(f: Callable, x0: Conf, params: MinimizeParams,
          dof_mask=None, f_val: Optional[Callable] = None,
-         traj_cap: int = 0):
+         traj_cap: int = 0, lazy_trials: bool = False):
     """Minimize f over pose DOF starting at x0 (bfgs.h:357-502).
 
     f: Conf (B, ...) -> (energy (B,), flat gradient (B, D)).
     f_val: optional forward-only energy (defaults to f's first output).
+    lazy_trials: the fast line search evaluates a trial only where it is
+    needed (fast_line_search), through f_val(confs, rows); the accurate
+    one calls f_val(confs) on the whole batch.
     dof_mask: optional (D,) bool of active DOF (padded torsions False).
     A pose stops once its line search finds no step (alpha 0), its gradient
     is small (|g|^2 < 1e-4) or, with early_term, its energy moved by less
@@ -199,8 +220,12 @@ def bfgs(f: Callable, x0: Conf, params: MinimizeParams,
         if dof_mask is not None:
             g_init = torch.where(dof_mask, g_init, 0.0)
         eye = torch.eye(d, dtype=torch.float32, device=dev)
-        line_search = (accurate_line_search if params.type == "accurate"
-                       else fast_line_search)
+        if params.type == "accurate":
+            line_search = accurate_line_search
+        elif lazy_trials:
+            line_search = functools.partial(fast_line_search, lazy=True)
+        else:
+            line_search = fast_line_search
 
         x, g, f0 = x0, g_init, f0_init
         h = eye.expand(b, d, d).clone()

@@ -331,14 +331,10 @@ def test_errors_return_one(files, capsys):
 # the general path's flags (--custom_scoring, --scoring dkoes*|ad4_scoring,
 # --user_grid[_lambda], --simple_ascent, --minimize_single_full) are ported:
 # test_torch_cli_general.py; the flex, covalent and --outputmin flags:
-# test_torch_cli_flex.py
+# test_torch_cli_flex.py; the CNN-in-the-loop and CNN debug flags:
+# test_torch_cli_cnn.py
 UNPORTED = [
-    (["--cnn_scoring", "refinement"], 13),
-    (["--cnn_scoring", "metrorescore"], 13),
-    (["--cnn_scoring", "metrorefine"], 13), (["--cnn_scoring", "all"], 13),
-    (["--cnn_outputdx"], 13), (["--cnn_outputxyz"], 13),
-    (["--cnn_gradient_check"], 13), (["--cnn_mix_emp_force"], 13),
-    (["--cnn_verbose"], 13), (["--cnn_model", "m.pt"], 15),
+    (["--cnn_model", "m.pt"], 15),
     (["--dist_nprocs", "2"], 14),
 ]
 

@@ -234,7 +234,10 @@ _PORTED = {"cnn_rescore": dict(cnn_scoring="rescore"),
            "non_vina_terms": {},
            # flex atoms take the general path; a ligand without rigid DOF
            # (a covalent complex's tree) docks by its torsions
-           "flex": {}, "covalent": {}}
+           "flex": {}, "covalent": {},
+           # a CNN-in-the-loop mode without a scorer docks without the CNN
+           # on the fused route, as in the JAX engine
+           "cnn_in_loop": dict(cnn_scoring="all")}
 
 
 @pytest.mark.parametrize("case", [
@@ -248,7 +251,8 @@ def test_jobs_outside_the_fused_route_raise(system, case):
     sort orders, which without a scorer mean no CNN as in the JAX engine;
     lockstep MC; the async and warm line searches; the done_frac group
     stop; fused_search="off" and non-vina terms, on the general path; flex
-    atoms, on the general path, and a ligand without rigid DOF) no longer
+    atoms, on the general path, and a ligand without rigid DOF; a
+    CNN-in-the-loop mode, which without a scorer means no CNN) no longer
     raise: they dock and score."""
     settings = dict(SETTINGS)
     sf = None
@@ -278,8 +282,6 @@ def test_jobs_outside_the_fused_route_raise(system, case):
     if case == "canonical_shapes":
         settings["canonical_shapes"] = True
         match = "canonical_shapes"
-    elif case == "cnn_in_loop":
-        settings["cnn_scoring"] = "all"
     eng = DockingEngine(DockSettings(**settings), sf=sf, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         eng.dock_batch(system["rec"], [lig], system["center"],

@@ -2,8 +2,9 @@
 port's engine on the CPU: each of fused_async_ls, fused_async_mc=False,
 fused_warm_ls and fused_mc_in_kernel=False docks through the plain
 versions; DockingEngine(DockSettings()) docks without a scorer as the JAX
-engine does; the CNN-in-the-loop modes still raise; the handles get the
-flags and window lengths the JAX engine gives them."""
+engine does; without a scorer every CNN-in-the-loop mode docks on the
+fused route without the CNN, as the JAX engine docks it; the handles get
+the flags and window lengths the JAX engine gives them."""
 
 import dataclasses
 import os
@@ -41,21 +42,37 @@ def system(tmp_path_factory):
         f.write(fx.receptor_pdb_text(fx.ligand_center(lig), seed=5,
                                      cube=18.0))
     center, _ = tingest.autobox_ligand(fx.LIGAND_SDF)
-    return dict(lig=lig, rec=tingest.Receptor.from_file(path),
-                center=np.asarray(center, np.float32),
-                size=np.full(3, BOX, np.float32))
+    out = dict(lig=lig, rec=tingest.Receptor.from_file(path),
+               center=np.asarray(center, np.float32),
+               size=np.full(3, BOX, np.float32))
+    # the dock under cnn_scoring='none', which the CNN-in-the-loop modes
+    # without a scorer must equal
+    out["off"] = DockingEngine(DockSettings(**SETTINGS),
+                               device="cpu").dock_batch(
+        out["rec"], [lig], out["center"], out["size"], seed=0)[0]
+    return out
 
 
 @pytest.mark.parametrize("mode", ["refinement", "metrorescore",
                                   "metrorefine", "all"])
-def test_cnn_in_the_loop_modes_raise(system, mode):
-    """Every CNN-in-the-loop mode is refused (with or without a scorer):
-    the general path is not ported."""
+def test_cnn_in_the_loop_modes_without_a_scorer_dock_on_the_fused_route(
+        system, mode):
+    """With cnn_scorer=None the JAX engine docks every CNN-in-the-loop mode
+    as if the CNN were off (has_cnn false, docking.py:976-979; its fused
+    route refuses only a job with a scorer, :915): the port takes the
+    fused route and docks, CNN fields 0.0, sorted by energy (sort `auto`),
+    the same poses as under cnn_scoring='none'."""
     eng = DockingEngine(DockSettings(**dict(SETTINGS, cnn_scoring=mode)),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="CNN in the loop"):
-        eng.dock_batch(system["rec"], [system["lig"]], system["center"],
-                       system["size"], seed=0)
+    assert eng._fused_route([system["lig"]])
+    eng._dock_general = None          # the general path is not taken
+    res = eng.dock_batch(system["rec"], [system["lig"]], system["center"],
+                         system["size"], seed=0)[0]
+    assert 1 <= len(res) <= 9
+    e = [p.energy for p in res]
+    assert e == sorted(e) and np.isfinite(e).all()
+    assert all(p.cnnscore == p.cnnaffinity == 0.0 for p in res)
+    assert [p.energy for p in system["off"]] == e
 
 
 def test_default_settings_dock_without_a_scorer(system):

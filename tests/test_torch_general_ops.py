@@ -537,7 +537,9 @@ def sequential_line_search(f_val, x, g, f0, p):
 def test_batched_trials_give_the_sequential_search(system, monkeypatch):
     """The fast line search's ten Armijo trials in one batched call give
     the reference's sequential search exactly: the same BFGS result with
-    sequential_line_search in its place."""
+    sequential_line_search in its place, and with lazy trials (each
+    evaluated only for the poses that still search, as the CNN
+    refinement takes them)."""
     jsf, tsf = sfs(system, "vina")
     _, _, _, (tl, tr, tbox), layers = prepared(system, jsf, tsf, size=12.0)
     from gnina_tpu_torch.ops.energy import make_energy_fn
@@ -554,6 +556,10 @@ def test_batched_trials_give_the_sequential_search(system, monkeypatch):
         return tfn.eval_energy(tl, tr, x, tbox, 1e3, [10.0] * 3)
 
     b = tbfgs.bfgs(f, c, tbfgs.MinimizeParams(maxiters=6), f_val=fv)
+    lazy = tbfgs.bfgs(f, c, tbfgs.MinimizeParams(maxiters=6),
+                      f_val=lambda x, rows=None: fv(x), lazy_trials=True)
+    assert torch.equal(lazy.f0, b.f0)
+    assert all(torch.equal(x, y) for x, y in zip(lazy.x, b.x))
     monkeypatch.setattr(tbfgs, "fast_line_search", sequential_line_search)
     a = tbfgs.bfgs(f, c, tbfgs.MinimizeParams(maxiters=6), f_val=fv)
     assert torch.equal(a.f0, b.f0)

@@ -27,7 +27,8 @@ _MODULES = ["gnina_tpu_torch", "gnina_tpu_torch.docking",
             "gnina_tpu_torch.ops.voxelize", "gnina_tpu_torch.models.typer",
             "gnina_tpu_torch.models.runtime",
             "gnina_tpu_torch.models.registry",
-            "gnina_tpu_torch.models.scorer", "gnina_tpu_torch.cli",
+            "gnina_tpu_torch.models.scorer",
+            "gnina_tpu_torch.models.debug_out", "gnina_tpu_torch.cli",
             "gnina_tpu_torch.probes", "gnina_tpu_torch.ops.bfgs",
             "gnina_tpu_torch.ops._cuda", "gnina_tpu_torch.output",
             "gnina_tpu_torch.scoring.atom_terms",

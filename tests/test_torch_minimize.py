@@ -272,14 +272,19 @@ def test_converged_minimize_matches_jax_loosely(system, engines):
                                       system["tlig"]).energy + 1e-3
 
 
-def test_unported_minimizers_raise(system):
-    """The minimizer variant still to port (CNN refinement) raises naming
-    its item; the testing minimizers (general path) run: simple_ascent
-    minimises by the steepest descent, minimize_single_full leaves
-    --minimize as it is; the minimization trajectory (--outputmin 2, 20
-    iterations) holds to JAX's: 3 frames a step, the frames of the first
-    four steps within 1e-3 A (two float32 codes of the accurate line
-    search part further with every step)."""
+def test_unported_minimizers_raise(system, tmp_path):
+    """Every minimizer variant runs (none is left to port): the testing
+    minimizers (general path): simple_ascent minimises by the steepest
+    descent, minimize_single_full leaves --minimize as it is; the
+    minimization trajectory (--outputmin 2, 20 iterations) holds to JAX's:
+    3 frames a step, the frames of the first four steps within 1e-3 A (two
+    float32 codes of the accurate line search part further with every
+    step); and the CNN refinement (cnn_scoring='refinement' with a scorer,
+    the toy CNN of test_torch_cnn_objective.py, 6 iterations a stage)
+    holds to JAX's: the energy and the minimised pose's CNN loss within
+    1e-3, on that file's system near the origin (the JAX voxelizer's
+    expanded squared distances part from the port's by 1e-4 at this
+    file's 40 A, and 6 iterations of a CNN minimisation magnify that)."""
     base = TEngine(TSettings(cnn_scoring="none", minimize_iters=20),
                    device="cpu").minimize(system["trec"], system["tlig"])
     for kw in (dict(simple_ascent=True), dict(minimize_single_full=True)):
@@ -295,10 +300,21 @@ def test_unported_minimizers_raise(system):
                                                       system["jlig"])
     assert len(tt) % 3 == 0 and len(jt) % 3 == 0 and len(tt) >= 12
     np.testing.assert_allclose(tt[:12], jt[:12], rtol=0, atol=1e-3)
-    te = TEngine(TSettings(cnn_scoring="refinement"), cnn_scorer=object(),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        te.minimize(system["trec"], system["tlig"])
+    from test_torch_cnn_objective import load_system, toy_scorers, \
+        write_system
+
+    near = load_system(*write_system(tmp_path))
+    js, ts = toy_scorers(0)
+    kw = dict(cnn_scoring="refinement", minimize_iters=6)
+    tr = TEngine(TSettings(**kw), cnn_scorer=ts, device="cpu").minimize(
+        near["trec"], near["tlig"])
+    jr = JEngine(JSettings(**kw), cnn_scorer=js).minimize(near["jrec"],
+                                                          near["jlig"])
+    assert abs(tr.energy - jr.energy) <= 1e-3, (tr.energy, jr.energy)
+    loss = [float(ts.score_poses(near["trec"], near["tlig"], c)[2][0])
+            for c in (tr.coords, jr.coords, near["tlig"].orig_coords)]
+    assert abs(loss[0] - loss[1]) <= 1e-3, loss
+    assert loss[0] < loss[2]
 
 
 def test_randomize_on_supplied_draws(system, engines):
