@@ -51,6 +51,13 @@ ensemble (CNN_STEPS steps), the CNN objective on the card against the
 same code on the CPU, --minimize under refinement, and six cli.main jobs
 at CNN_CLI_STEPS steps (metrorescore, metrorefine, all, --minimize
 --cnn_scoring refinement, the empirical mix, and the CNN debug outputs).
+Phase [11] runs the tools: gninagrid at full width (48^3 x 28 channels)
+held to the same command on the CPU, the gninatyper/tognina/fromgnina
+round trip, gninavis with the default ensemble (card against CPU on a few
+masked rows), the minimisation server over HTTP on 127.0.0.1 (every
+served affinity the engine's own), and --score_only --cnn_model with a
+TorchScript network traced in the phase (its CNNscore the traced module's
+forward on the port's grid; the job rescores through K1).
 
 Phases print one line each; any failed check exits non-zero.  The line
 before the last is the kernel table as JSON (`launches` counts kernel
@@ -101,8 +108,9 @@ LIGANDS, EXHAUSTIVENESS, MC_STEPS = 16, 8, 1024
 # phase [8]'s depth: the general path is a per-step loop of small torch
 # operations (about half a second a step at 128 lanes on an H100), so its
 # docks run 64 steps (128 until [10] needed the time) and its command-line
-# jobs 32, not 1024 (PERF.md section 4)
-GENERAL_STEPS, GENERAL_CLI_STEPS = 64, 32
+# jobs 16 (32 until [11] took 86 s and the whole script 827.6 s, over the
+# 760 s allowed before a cut), not 1024 (PERF.md section 4)
+GENERAL_STEPS, GENERAL_CLI_STEPS = 64, 16
 # phase [9]'s depth: flex jobs take the general path only, at 0.7-1.5 s a
 # step at 128 lanes with four flex residues, so the flex dock is cut from
 # 1024 to 32 steps at full width and its command-line jobs to 8, to keep
@@ -115,6 +123,12 @@ FLEX_STEPS, FLEX_CLI_STEPS = 32, 8
 # jobs to 4 (at 16 steps the whole script took about 830 s on a slow host,
 # over the 800 s it must stay under; PERF.md section 4)
 CNN_STEPS, CNN_CLI_STEPS = 8, 4
+# phase [11]'s ligands (the first records of minout.sdf): gninagrid's
+# grids, the file tools' round trip and the served minimisations.  Cut
+# from 8 to 2 after [8]'s command-line cut: at 8, [11] took 86.0 s (a
+# served minimisation and its direct twin 2.9 s each, the CPU's grids
+# 21.5 s) and the whole script 827.6 s (PERF.md section 4)
+TOOLS_LIGANDS = 2
 
 
 class Failure(Exception):
@@ -1934,6 +1948,436 @@ def phase_cnn(seed, steps, cli_steps):
     return dict(dock_s=wall, cli=walls)
 
 
+def phase_tools(seed):
+    """[11] The tools on the card (gnina_tpu_torch/tools/), on the seed's
+    synthetic receptor of [8] (the whole file: the tools take no box) and
+    the first TOOLS_LIGANDS records of minout.sdf, every file under a
+    temporary directory.
+
+    [11a] gninagrid at full width (the default 23.5 A / 0.5 A grid, 48^3
+    points, the default typers' 28 channels) through tools.gninagrid.main:
+    the combined .binmap of every ligand, --dx for one ligand, --separate
+    --example_grid, -g with --separate (the user grid followed by the 14
+    receptor channels), --random_translate 2.  Every file is held to the
+    same command on the CPU (--device cpu): the same names, every value
+    within 1e-4 (the voxelizer's card-against-CPU bar of [5f]; .dx files
+    plus their print's rounding).  Grids per second on the card: main()'s
+    wall (files written) and gninagrid.make_grid's alone.
+
+    [11b] gninatyper, tognina and fromgnina: a round trip of the ligands.
+    The .gninatypes records are the ligands' heavy atoms (types and float32
+    coordinates equal); the .molcache loads back with equal types,
+    coordinates and atom counts; fromgnina's SDF has each ligand's atom
+    count, its coordinates within 1e-4 A and the element of each type.
+
+    [11c] gninavis with the default three-model ensemble on one ligand,
+    atoms and fragments (--frag_bonds 6), on the card.  Two PDBs with a
+    finite B-factor per atom; the per-atom scores of atom masking on the
+    card held to the same masked rows scored on the CPU for three rows (the
+    base pose and two masked atoms; a CPU ensemble pass over every row at
+    48^3 is too slow for the script), within twice [5f]'s bar for ensemble
+    outputs (a score is a difference of two).  Prints the fragments and
+    the ensemble forwards (one per pose chunk of at most 128).
+
+    [11d] the minimisation server in a daemon thread on 127.0.0.1 (a free
+    port), on the card, with DockSettings(cnn_scoring="none"), through
+    tools.server_client: /status, the receptor upload, one /minimize of
+    the ligands, /status again (the count), a /minimize before a receptor
+    on a second state (400) and an unknown path (404).  Every returned
+    minimizedAffinity equals DockingEngine.minimize on the card for that
+    ligand within 1e-4 kcal/mol.  Prints ms per served ligand.
+
+    [11e] --cnn_model: a small TorchScript network made in the phase with
+    torch.jit.trace (a 3D convolution, relu, a max pool, a log-softmax pose
+    head and an affinity head; metadata resolution 1 A, dimension 12 A),
+    scored by cli.main --score_only --cnn_model on one ligand.  The SDF's
+    CNNscore and CNNaffinity equal the traced module's own forward on the
+    port's grid of the pose the scorer was given, within 1e-5; the job
+    rescores through K1 (its counts set to 0 just before, read just
+    after)."""
+    import re
+    import shutil
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch import cli
+    from gnina_tpu_torch.chem import ingest, molcache
+    from gnina_tpu_torch.chem.sdf import iter_sdf
+    from gnina_tpu_torch.constants import IS_HYDROGEN, SminaType, \
+        smina_type_to_element_name
+    from gnina_tpu_torch.docking import DockingEngine, DockSettings
+    from gnina_tpu_torch.models.scorer import CNNScorer
+    from gnina_tpu_torch.models.typer import default_lig_typer, \
+        default_rec_typer
+    from gnina_tpu_torch.ops import fused_dock as fd
+    from gnina_tpu_torch.tools import fromgnina, gninagrid, gninatyper, \
+        gninavis, server, server_client, tognina
+
+    smi = smi_line()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    path = lambda *p: os.path.join(tmp, *p)
+    n_lig = TOOLS_LIGANDS
+    lig0 = fx.ligand()
+    with open(path("rec.pdb"), "w") as f:
+        f.write(fx.receptor_pdb_text(fx.ligand_center(lig0), seed))
+    with open(fx.LIGAND_SDF) as f:
+        blocks = f.read().split("$$$$\n")
+    with open(path("ligs.sdf"), "w") as f:
+        f.write("".join(b + "$$$$\n" for b in blocks[:n_lig]))
+    with open(path("one.sdf"), "w") as f:
+        f.write(blocks[0] + "$$$$\n")
+    rec = ingest.Receptor.from_file(path("rec.pdb"))
+    ligs = list(ingest.iter_ligands(path("ligs.sdf")))
+    check(len(ligs) == n_lig, "the tools' ligands")
+    walls = {}
+
+    def sync_wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- [11a] gninagrid ---------------------------------------------------
+    t_a = time.perf_counter()
+    npts = 48
+    center = np.mean([lg.orig_coords.mean(axis=0) for lg in ligs], axis=0)
+    ax = (np.arange(npts) - (npts - 1) / 2) * 0.5
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    gninagrid.write_dx(path("user.dx"),
+                       (0.01 * (x * x + y * y + z * z)).astype(np.float32),
+                       center, 0.5)
+    runs = {"comb": ("ligs.sdf", []), "dx": ("one.sdf", ["--dx"]),
+            "sep": ("ligs.sdf", ["--separate", "--example_grid",
+                                 path("user.dx")]),
+            "gsep": ("ligs.sdf", ["-g", path("user.dx"), "--separate"]),
+            "trans": ("ligs.sdf", ["--random_translate", "2", "--seed",
+                                   str(seed)])}
+    grid_walls = {}
+    for where in ("card", "cpu"):
+        os.makedirs(path(where))
+        for name, (src, flags) in runs.items():
+            argv = (["-r", path("rec.pdb"), "-l", path(src), "-o",
+                     path(where, name)] + flags
+                    + (["--device", "cpu"] if where == "cpu" else []))
+            rc, w = sync_wall(lambda: gninagrid.main(argv))
+            check(rc == 0, f"gninagrid {name} on the {where}: rc {rc}")
+            grid_walls[(where, name)] = w
+    card_files = sorted(os.listdir(path("card")))
+    check(card_files == sorted(os.listdir(path("cpu"))),
+          "gninagrid wrote other files on the card than on the CPU")
+    n3 = npts ** 3
+    want = ([f"comb_{i}.{npts}.28.binmap" for i in range(n_lig)]
+            + [f"sep.{npts}.14.binmap"]
+            + [f"sep_{i}.{npts}.14.binmap" for i in range(n_lig)]
+            + [f"gsep.{npts}.15.binmap"]
+            + [f"gsep_{i}.{npts}.14.binmap" for i in range(n_lig)]
+            + [f"trans_{i}.{npts}.28.binmap" for i in range(n_lig)])
+    dx_files = [n for n in card_files if n.endswith(".dx")]
+    check(sorted(want) == sorted(n for n in card_files
+                                 if n.endswith(".binmap")),
+          f"gninagrid's binmap names: {card_files}")
+    check(len(dx_files) >= 4 and all(n.startswith("dx_0_") for n in dx_files),
+          f"gninagrid --dx files: {dx_files}")
+    grid_err = dx_err = 0.0
+    for n in card_files:
+        if n.endswith(".binmap"):
+            a = np.fromfile(path("card", n), np.float32)
+            b = np.fromfile(path("cpu", n), np.float32)
+            check(a.shape == b.shape and a.size % n3 == 0
+                  and np.isfinite(a).all(), f"{n}: shape or values")
+            grid_err = max(grid_err, float(np.abs(a - b).max()))
+        else:
+            a, ca, ra = gninagrid.read_dx(path("card", n))
+            b, cb, rb = gninagrid.read_dx(path("cpu", n))
+            check(a.shape == (npts,) * 3 and np.array_equal(ca, cb)
+                  and ra == rb == 0.5, f"{n}: header")
+            dx_err = max(dx_err, float(np.abs(a - b).max()))
+    # .dx values are printed to 5 decimals: 1e-5 more for their rounding
+    check(grid_err <= 1e-4 and dx_err <= 1e-4 + 1e-5,
+          f"gninagrid card vs CPU: {grid_err:.2e}, .dx {dx_err:.2e}")
+    comb = np.fromfile(path("card", f"comb_0.{npts}.28.binmap"), np.float32)
+    trans = np.fromfile(path("card", f"trans_0.{npts}.28.binmap"), np.float32)
+    gsep = np.fromfile(path("card", f"gsep.{npts}.15.binmap"), np.float32)
+    user = gninagrid.read_dx(path("user.dx"))[0]
+    check(comb.reshape(28, -1)[:14].max() > 0.5
+          and comb.reshape(28, -1)[14:].max() > 0.5,
+          "the combined grid lacks receptor or ligand density")
+    check(np.abs(comb - trans).max() > 0.1, "--random_translate moved nothing")
+    check(gsep.size == 15 * n3 and np.array_equal(gsep[:n3], user.ravel())
+          and gsep[n3:].max() > 0.5,
+          "-g --separate: not the user grid followed by the receptor")
+    # the voxelizer alone on the card: 8 combined grids, the ligands in turn
+    rt, lt = default_rec_typer(), default_lig_typer()
+    gninagrid.make_grid(rec.coords, rec.types, ligs[0].orig_coords,
+                        ligs[0].types, center, rt, lt, 0.5, 23.5)
+    mk_ligs = [ligs[i % n_lig] for i in range(8)]
+    _g, mk_wall = sync_wall(lambda: [gninagrid.make_grid(
+        rec.coords, rec.types, lg.orig_coords, lg.types,
+        lg.orig_coords.mean(axis=0), rt, lt, 0.5, 23.5) for lg in mk_ligs])
+    walls["11a"] = time.perf_counter() - t_a
+    card_s = sum(v for (w, _n), v in grid_walls.items() if w == "card")
+    cpu_s = sum(v for (w, _n), v in grid_walls.items() if w == "cpu")
+    print(f"[11a] gninagrid, {npts}^3 x 28 channels at 0.5 A, {n_lig} "
+          f"ligands, receptor {len(rec.types)} atoms: runs "
+          + ", ".join(f"{k} {grid_walls[('card', k)]:.2f} s"
+                      for k in runs)
+          + f" on the card ({card_s:.2f} s; the CPU {cpu_s:.2f} s); "
+          f"{len(card_files)} files equal to the CPU's within "
+          f"{grid_err:.2e} (.dx {dx_err:.2e}; atol 1e-4); combined .binmap "
+          f"{n_lig / grid_walls[('card', 'comb')]:.2f} grids/s through "
+          f"main() with its files, make_grid alone "
+          f"{len(mk_ligs) / mk_wall:.2f} grids/s; -g --separate holds the "
+          f"user grid + 14 receptor channels; {walls['11a']:.1f} s | {smi}",
+          flush=True)
+
+    # ---- [11b] gninatyper, tognina, fromgnina -----------------------------
+    t_b = time.perf_counter()
+    os.makedirs(path("files"))
+    check(gninatyper.main([path("ligs.sdf"), path("files", "t")]) == 0,
+          "gninatyper")
+    for i, lg in enumerate(ligs):
+        c, t = gninatyper.read_gninatypes(path("files", f"t_{i}.gninatypes"))
+        heavy = ~IS_HYDROGEN[lg.types]
+        check(np.array_equal(t, lg.types[heavy])
+              and np.array_equal(c, lg.orig_coords[heavy].astype(np.float32)),
+              f"gninatypes of ligand {i}")
+    mc = path("files", "ligs.molcache")
+    check(tognina.main([path("ligs.sdf"), mc]) == 0, "tognina")
+    back = list(molcache.load_ligands(mc))
+    check(len(back) == n_lig and all(
+        b.num_atoms == lg.num_atoms and np.array_equal(b.types, lg.types)
+        and np.array_equal(b.orig_coords, lg.orig_coords)
+        and np.array_equal(b.pairs, lg.pairs)
+        for b, lg in zip(back, ligs)), "the .molcache round trip")
+    check(fromgnina.main([mc, path("files", "back.sdf")]) == 0, "fromgnina")
+    mols = list(iter_sdf(path("files", "back.sdf")))
+    xyz_err = max(float(np.abs(m.coords() - lg.orig_coords).max())
+                  for m, lg in zip(mols, ligs))
+    check(len(mols) == n_lig and all(
+        m.num_atoms() == lg.num_atoms
+        and [a.element_name for a in m.atoms]
+        == [smina_type_to_element_name(SminaType(int(t))) for t in lg.types]
+        for m, lg in zip(mols, ligs)) and xyz_err <= 1e-4,
+        "fromgnina's SDF: atom counts, elements or coordinates")
+    walls["11b"] = time.perf_counter() - t_b
+    print(f"[11b] gninatyper, tognina, fromgnina round trip of {n_lig} "
+          f"ligands ({ligs[0].num_atoms} atoms each): types, coordinates "
+          f"and atom counts equal, fromgnina's coordinates within "
+          f"{xyz_err:.1e} A; {walls['11b']:.2f} s | {smi}", flush=True)
+
+    # ---- [11c] gninavis ---------------------------------------------------
+    t_c = time.perf_counter()
+    forwards = []
+    real_forward = CNNScorer.ensemble_forward
+
+    def counting(self, *a, **kw):
+        forwards.append(int(a[3].shape[0]))
+        return real_forward(self, *a, **kw)
+
+    os.makedirs(path("vis"))
+    CNNScorer.ensemble_forward = counting
+    try:
+        rc, vis_wall = sync_wall(lambda: gninavis.main(
+            ["-r", path("rec.pdb"), "-l", path("one.sdf"), "-o",
+             path("vis", "v"), "--frag_bonds", "6"]))
+    finally:
+        CNNScorer.ensemble_forward = real_forward
+    check(rc == 0, f"gninavis rc {rc}")
+    lig = ligs[0]
+    frags = gninavis.bond_subgraph_fragments(lig, 6)
+    bfac = {}
+    for kind in ("atoms", "frags"):
+        with open(path("vis", f"v_0_{kind}.pdb")) as f:
+            lines = f.read().splitlines()
+        check(len(lines) == lig.num_atoms + 1 and lines[-1] == "END",
+              f"gninavis {kind} PDB")
+        bfac[kind] = np.array([float(ln[60:66]) for ln in lines[:-1]])
+        check(np.isfinite(bfac[kind]).all(), f"gninavis {kind} B-factors")
+    card_sc = CNNScorer()
+    check(len(card_sc.models) == 3 and card_sc.device.type == "cuda",
+          "gninavis: not the default ensemble on the card")
+    atoms_card = gninavis.atom_masking_scores(card_sc, rec, lig)
+    check(np.abs(atoms_card - bfac["atoms"]).max() <= 0.0051,
+          "gninavis' atom PDB is not the card's atom masking")
+    heavy_ids = [i for i in range(lig.num_atoms)
+                 if not IS_HYDROGEN[lig.types[i]]]
+    rows = [heavy_ids[0], heavy_ids[len(heavy_ids) // 2]]
+    coords = lig.orig_coords
+    batch = np.tile(coords[None], (len(rows), 1, 1))
+    for r, i in enumerate(rows):
+        batch[r, i] = coords[i] + 1e4
+    cpu_sc = CNNScorer(device="cpu")
+    cbase = cpu_sc.score_pose(rec, lig, coords)[0]
+    cscores = cpu_sc.score_poses(rec, lig, batch)[0]
+    gbase = card_sc.score_pose(rec, lig, coords)[0]
+    gscores = card_sc.score_poses(rec, lig, batch)[0]
+    vis_err = max([abs(cbase - gbase)]
+                  + [abs(float(a) - float(b))
+                     for a, b in zip(cscores, gscores)]
+                  + [abs((cbase - float(s)) - float(atoms_card[i]))
+                     for s, i in zip(cscores, rows)])
+    bar = 2 * (1e-4 + 1e-3 * max(abs(cbase), 1.0))
+    check(vis_err <= bar, f"gninavis card vs CPU: {vis_err:.2e} > {bar:.2e}")
+    walls["11c"] = time.perf_counter() - t_c
+    print(f"[11c] gninavis, default ensemble (3 models, 28 x 48^3), one "
+          f"ligand: {len(heavy_ids)} heavy atoms masked, {len(frags)} "
+          f"fragments of 1-6 bonds; main() {vis_wall:.2f} s in "
+          f"{len(forwards)} ensemble forwards ({sum(forwards)} pose rows, "
+          f"{3 * len(forwards)} model forwards); base CNNscore "
+          f"{gbase:.4f}, atom scores {atoms_card.min():.4f}.."
+          f"{atoms_card.max():.4f}; card vs CPU on the base and {len(rows)} "
+          f"masked rows {vis_err:.2e} (atol {bar:.1e}); {walls['11c']:.1f} s"
+          f" | {smi}", flush=True)
+
+    # ---- [11d] the minimisation server ------------------------------------
+    t_d = time.perf_counter()
+    state = server._State(DockSettings(cnn_scoring="none"))
+    check(state.engine.device.type == "cuda", "the server is not on the card")
+    bare = server._State(DockSettings(cnn_scoring="none"))
+    servers = []
+    for st in (state, bare):
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    server._make_handler(st))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append(httpd)
+    port, port2 = (h.server_address[1] for h in servers)
+
+    def http_code(fn):
+        try:
+            fn()
+        except urllib.error.HTTPError as e:
+            return e.code
+        return 200
+
+    try:
+        st0 = server_client.status("127.0.0.1", port)
+        results, srv_wall = sync_wall(lambda: server_client.submit(
+            "127.0.0.1", port, path("rec.pdb"), path("ligs.sdf")))
+        st1 = server_client.status("127.0.0.1", port)
+        with open(path("ligs.sdf")) as f:
+            text = f.read()
+        c400 = http_code(lambda: server_client._post(
+            f"http://127.0.0.1:{port2}", "/minimize", text, "sdf"))
+        c404 = http_code(lambda: urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/nope"))
+    finally:
+        for h in servers:
+            h.shutdown()
+            h.server_close()
+    check(st0["receptor_loaded"] is False and st0["ligands_minimized"] == 0
+          and st1["receptor_loaded"] is True
+          and st1["ligands_minimized"] == n_lig, f"server status {st0} {st1}")
+    check((c400, c404) == (400, 404), f"server codes {c400} {c404}")
+    check(len(results) == n_lig and all(
+        list(r) == ["name", "minimizedAffinity", "intramol", "rmsd",
+                    "cnnscore", "cnnaffinity"] for r in results),
+        "server result keys")
+    eng = DockingEngine(DockSettings(cnn_scoring="none"))
+    direct, direct_wall = sync_wall(
+        lambda: [eng.minimize(rec, lg).energy for lg in ligs])
+    srv_err = max(abs(r["minimizedAffinity"] - e)
+                  for r, e in zip(results, direct))
+    check(np.isfinite(direct).all() and srv_err <= 1e-4,
+          f"served minimizedAffinity vs engine.minimize: {srv_err:.2e}")
+    walls["11d"] = time.perf_counter() - t_d
+    print(f"[11d] server on 127.0.0.1 (cnn_scoring none): {n_lig} ligands "
+          f"in one /minimize, {1e3 * srv_wall / n_lig:.1f} ms a served "
+          f"ligand ({1e3 * direct_wall / n_lig:.1f} ms a direct "
+          f"engine.minimize); minimizedAffinity {min(direct):.4f}.."
+          f"{max(direct):.4f}, the engine's within {srv_err:.1e} kcal/mol; "
+          f"status counts 0 -> {st1['ligands_minimized']}, 400 before a "
+          f"receptor, 404 on an unknown path; {walls['11d']:.1f} s | {smi}",
+          flush=True)
+
+    # ---- [11e] --cnn_model ------------------------------------------------
+    t_e = time.perf_counter()
+
+    class ToyNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv3d(28, 16, 3, padding=1)
+            self.pool = torch.nn.MaxPool3d(2)
+            self.pose = torch.nn.Linear(16 * 6 ** 3, 2)
+            self.affinity = torch.nn.Linear(16 * 6 ** 3, 1)
+
+        def forward(self, x):
+            f = torch.flatten(self.pool(torch.relu(self.conv(x))), 1)
+            return (torch.log_softmax(self.pose(f), dim=1),
+                    self.affinity(f).squeeze(-1))
+
+    torch.manual_seed(seed)
+    traced = torch.jit.trace(ToyNet().eval(),
+                             torch.randn(2, 28, 13, 13, 13))
+    pt = path("toy.pt")
+    traced.save(pt, _extra_files={"metadata": json.dumps(
+        {"resolution": 1.0, "dimension": 12.0})})
+    seen = []
+    real_multi = CNNScorer.score_poses_multi
+
+    def spy(self, rec_, items):
+        seen.append((self, [(lg, np.array(c, np.float32)) for lg, c in items]))
+        return real_multi(self, rec_, items)
+
+    torch.cuda.synchronize()
+    for k in fd.KERNELS:
+        k.reset()
+    CNNScorer.score_poses_multi = spy
+    try:
+        rc, cli_wall = sync_wall(lambda: cli.main(
+            ["-r", path("rec.pdb"), "-l", path("one.sdf"), "--score_only",
+             "--cnn_model", pt, "-o", path("cnn_model.sdf"), "-q"]))
+    finally:
+        CNNScorer.score_poses_multi = real_multi
+    counts = read_counts(fd)
+    check(rc == 0, f"cli.main --cnn_model: rc {rc}")
+    check(counts.launches["eval_fg"] >= 1,
+          f"--score_only --cnn_model did not reach K1: {counts.launches}")
+    with open(path("cnn_model.sdf")) as f:
+        sdf_text = f.read()
+    tags = {k: float(v) for k, v in re.findall(
+        r">  <(CNNscore|CNNaffinity)>\n(\S+)", sdf_text)}
+    check(len(seen) == 1 and len(seen[0][1]) == 1 and len(tags) == 2,
+          "--cnn_model: one scorer call, one pose, both tags")
+    sc_obj, items = seen[0]
+    check(len(sc_obj.models) == 1 and sc_obj.models[0].grid_points == 13,
+          "--cnn_model: not the traced model")
+    prep = sc_obj.prepare_multi(rec, items)
+    dev = sc_obj.device
+    a_ = [torch.as_tensor(x, device=dev) for x in prep["rec"]] + [
+        torch.as_tensor(prep[k], device=dev)
+        for k in ("coords", "types", "mask", "centers")]
+    with torch.no_grad():
+        grid = sc_obj.voxelize_group(sc_obj.models[0], *a_, prep["win"])
+        out = torch.jit.load(pt, map_location=dev)(grid[:1])
+    want_score = float(torch.softmax(out[0], dim=1)[0, 1])
+    want_aff = float(out[1][0])
+    cnn_err = max(abs(tags["CNNscore"] - want_score),
+                  abs(tags["CNNaffinity"] - want_aff))
+    check(np.isfinite([want_score, want_aff]).all() and cnn_err <= 1e-5,
+          f"--cnn_model CNNscore/CNNaffinity vs the traced forward: "
+          f"{cnn_err:.2e}")
+    walls["11e"] = time.perf_counter() - t_e
+    print(f"[11e] cli.main --score_only --cnn_model (a traced conv3d/relu/"
+          f"max-pool net, 13^3 at 1 A): rc 0 in {cli_wall:.2f} s, CNNscore "
+          f"{tags['CNNscore']:.6f}, CNNaffinity {tags['CNNaffinity']:.6f}, "
+          f"the traced module's forward on the port's grid within "
+          f"{cnn_err:.1e} (1e-5); K1 launches {counts.launches['eval_fg']}; "
+          f"{walls['11e']:.1f} s | {smi}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[11] {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"[{k}] {v:.1f} s" for k, v in walls.items()),
+          flush=True)
+    return walls
+
+
 def read_counts(fd):
     """Every wrapper's counts as dicts by kernel name: kernel launches (in
     all, by the call's lane count, by mode, with done_frac < 1) and wrapper
@@ -2882,6 +3326,9 @@ def main():
 
     # ---- 10. the CNN inside the search (no kernel) -------------------------
     phase_cnn(args.seed, CNN_STEPS, CNN_CLI_STEPS)
+
+    # ---- 11. the tools (K1 under --score_only --cnn_model) -----------------
+    phase_tools(args.seed)
 
     table = {"kernels": [dict(
         name=row["name"], route="cuda",

@@ -10,7 +10,10 @@ use; the CNN rescore (models/, ops/voxelize.py), whose convolutions and
 matrix products are library calls as in the JAX package; the command line
 (`python -m gnina_tpu_torch`, cli.py) with score_only, minimize (ops/bfgs.py),
 randomize and the screen, and its writers (output.py,
-scoring/atom_terms.py); and the rate probes (probes.py, csrc/probes.cu).
+scoring/atom_terms.py); the rate probes (probes.py, csrc/probes.cu); and
+the tools (tools/: gninagrid, gninatyper, gninavis, tognina, fromgnina
+with chem/molcache.py, the minimisation server and its client) with
+TorchScript import for --cnn_model (models/torchscript_import.py).
 
 Float32 matmuls and convolutions run in full float32: TF32 is switched off
 here, at the package's entry, because the pose math (FK origins, RMSD Gram

@@ -17,9 +17,8 @@ Differences from the JAX CLI, all forced by the port:
   are shared, and the port's kernels take their shapes at run time.
 - Buckets are docked in a plain loop; `--no_compile_ahead` is accepted
   without effect (its two worker threads overlap XLA compiles).
-- Flags whose modules are not ported yet (the tools, multi-GPU) parse and
-  then raise NotImplementedError naming their ROADMAP.md item, before any
-  work.
+- Flags whose modules are not ported yet (multi-GPU) parse and then raise
+  NotImplementedError naming their ROADMAP.md item, before any work.
 
 The GNINA_TPU_FUSED_* environment knobs keep their names.
 """
@@ -38,7 +37,7 @@ import numpy as np
 from gnina_tpu_torch import __version__
 from gnina_tpu_torch.chem import flexinfo, ingest
 from gnina_tpu_torch.chem.tree_build import attach_flex, empty_ligand_struct
-from gnina_tpu_torch.device import resolve_device
+from gnina_tpu_torch.device import device_from_flag
 from gnina_tpu_torch.docking import DockingEngine, DockSettings
 from gnina_tpu_torch.output import write_flex_pdb, write_poses_sdf
 from gnina_tpu_torch.scoring.builtin import get_scoring_function, \
@@ -273,7 +272,6 @@ class Tee:
 # ROADMAP.md items of the modules still to port, by number
 _ITEMS = {
     14: "Queue 1 item 14: multi-GPU",
-    15: "Queue 1 item 15: tools",
 }
 
 
@@ -281,7 +279,6 @@ def check_ported(args) -> None:
     """Raise NotImplementedError for a flag whose module is not ported yet,
     naming its ROADMAP.md item; nothing is silently ignored."""
     checks = [
-        (bool(args.cnn_model), "--cnn_model (TorchScript conversion)", 15),
         ((args.dist_nprocs or 1) > 1, "--dist_nprocs > 1", 14),
     ]
     for hit, flag, item in checks:
@@ -318,13 +315,6 @@ def _cnn_debug_outputs(args, cnn, rec, lig, result, log):
     if args.cnn_gradient_check:
         debug_out.gradient_check(cnn, rec_coords, rec_types, rec_mask, lig,
                                  coords, center, log)
-
-
-def _torch_device(spec):
-    """--device: None is the card, a bare number gnina's GPU index."""
-    if spec is not None and str(spec).strip().isdigit():
-        spec = f"cuda:{int(spec)}"
-    return resolve_device(spec)
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
@@ -381,7 +371,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         os.environ.get("GNINA_TPU_NPROCS", "1"))
     scoring = args.scoring if args.scoring != "default" else "vina"
     check_ported(args)
-    dev = _torch_device(args.device if args.device is not None else device)
+    dev = device_from_flag(args.device if args.device is not None else device)
 
     # --minimize softens the defaults (main.cpp:1152-1166): forcecap 10,
     # converge (10000 iters), accurate line search; plain --local_only
@@ -469,7 +459,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         if args.cnn_center_x is not None:
             center = np.array([args.cnn_center_x, args.cnn_center_y,
                                args.cnn_center_z], np.float32)
-        cnn = CNNScorer(model_names=args.cnn or None,
+        cnn = CNNScorer(model_names=(args.cnn + args.cnn_model) or None,
                         rotations=args.cnn_rotations, seed=args.seed,
                         center=center, device=dev, verbose=args.cnn_verbose)
 

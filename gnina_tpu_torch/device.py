@@ -12,3 +12,11 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "plain versions on the CPU")
     return dev
+
+
+def device_from_flag(spec) -> torch.device:
+    """A command line's --device: None is the card, a bare number gnina's
+    GPU index, anything else a torch device name ('cpu', 'cuda:1')."""
+    if spec is not None and str(spec).strip().isdigit():
+        spec = f"cuda:{int(spec)}"
+    return resolve_device(spec)

@@ -4,20 +4,27 @@ Mirrors the reference's embedded-model table and ensemble-expansion logic
 (reference: gninasrc/lib/cnn_torch_scorer.cpp:28-66, torch_models.h).  The
 converted models (a `.spec.json` op list + `.npz` weights each) are read in
 place from the repository's one copy, gnina_tpu/data/models/, or from a
-`models_dir` the caller names.  Conversion from TorchScript checkpoints is
-not ported: a name without a converted file raises.
+`models_dir` the caller names.  A user's own TorchScript checkpoint (a
+`.pt` path, --cnn_model) is converted by models/torchscript_import.py into
+CACHE_DIR, keyed by the file's contents, and runs through the same
+SpecModule.  Every built-in name has its converted file in the repository;
+a name without one raises (the JAX registry's conversion of a name from a
+directory of TorchScript sources is not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
+import tempfile
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.models.runtime import SpecModule, load_spec
+from gnina_tpu_torch.models.torchscript_import import convert_and_save
 from gnina_tpu_torch.models.typer import (ChannelTyper, DEFAULT_LIGMAP,
                                           DEFAULT_RECMAP)
 
@@ -25,6 +32,11 @@ from gnina_tpu_torch.models.typer import (ChannelTyper, DEFAULT_LIGMAP,
 MODELS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "gnina_tpu", "data", "models")
+# conversions of user checkpoints (--cnn_model), inside the package's
+# build directory
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build",
+    "models")
 
 ALL_MODEL_FILES = [
     "all_default_to_default_1.3_1", "all_default_to_default_1.3_2",
@@ -132,10 +144,37 @@ def model_from_spec(name: str, spec: dict, params: Dict[str, np.ndarray],
 _MODEL_CACHE: dict = {}
 
 
+def load_model_from_file(path: str, device=None) -> CNNModel:
+    """A user's TorchScript checkpoint (--cnn_model) on `device` (None: the
+    card): converted once into CACHE_DIR under the hash of its bytes, then
+    loaded as a converted model."""
+    device = resolve_device(device)
+    with open(path, "rb") as f:
+        tag = "file_" + hashlib.sha1(f.read()).hexdigest()[:16]
+    key = (tag, CACHE_DIR, str(device))
+    if key not in _MODEL_CACHE:
+        spec_path = os.path.join(CACHE_DIR, f"{tag}.spec.json")
+        npz_path = os.path.join(CACHE_DIR, f"{tag}.npz")
+        if not (os.path.exists(spec_path) and os.path.exists(npz_path)):
+            # convert beside the cache and move in, so that concurrent
+            # processes never read a half-written file
+            os.makedirs(CACHE_DIR, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=CACHE_DIR) as tmp:
+                convert_and_save(path, tmp, tag)
+                os.replace(os.path.join(tmp, f"{tag}.npz"), npz_path)
+                os.replace(os.path.join(tmp, f"{tag}.spec.json"), spec_path)
+        spec, params = load_spec(spec_path, npz_path)
+        _MODEL_CACHE[key] = model_from_spec(tag, spec, params, device=device)
+    return _MODEL_CACHE[key]
+
+
 def load_model(name: str, device=None,
                models_dir: Optional[str] = None) -> CNNModel:
     """The converted model `name` on `device` (None: the card), from
-    `models_dir` (None: the repository's gnina_tpu/data/models)."""
+    `models_dir` (None: the repository's gnina_tpu/data/models); a path to
+    an existing `.pt` file is a user's checkpoint (load_model_from_file)."""
+    if name.endswith(".pt") and os.path.exists(name):
+        return load_model_from_file(name, device)
     device = resolve_device(device)
     name = name.replace(".", "_")
     models_dir = os.path.abspath(models_dir or MODELS_DIR)
@@ -147,8 +186,8 @@ def load_model(name: str, device=None,
             known = "" if name in MODEL_NAMES else " (not a built-in name)"
             raise FileNotFoundError(
                 f"CNN model {name!r}{known}: no converted {name}.spec.json + "
-                f"{name}.npz under {models_dir}; conversion from TorchScript "
-                f"is not ported")
+                f"{name}.npz under {models_dir}; converting a name from its "
+                f"TorchScript source is not ported (a .pt path converts)")
         spec, params = load_spec(spec_path, npz_path)
         _MODEL_CACHE[key] = model_from_spec(name, spec, params, device=device)
     return _MODEL_CACHE[key]

@@ -332,9 +332,8 @@ def test_errors_return_one(files, capsys):
 # --user_grid[_lambda], --simple_ascent, --minimize_single_full) are ported:
 # test_torch_cli_general.py; the flex, covalent and --outputmin flags:
 # test_torch_cli_flex.py; the CNN-in-the-loop and CNN debug flags:
-# test_torch_cli_cnn.py
+# test_torch_cli_cnn.py; --cnn_model: test_torch_torchscript.py
 UNPORTED = [
-    (["--cnn_model", "m.pt"], 15),
     (["--dist_nprocs", "2"], 14),
 ]
 

@@ -33,7 +33,14 @@ _MODULES = ["gnina_tpu_torch", "gnina_tpu_torch.docking",
             "gnina_tpu_torch.ops._cuda", "gnina_tpu_torch.output",
             "gnina_tpu_torch.scoring.atom_terms",
             "gnina_tpu_torch.chem.smarts", "gnina_tpu_torch.chem.flexinfo",
-            "gnina_tpu_torch.chem.covalent"]
+            "gnina_tpu_torch.chem.covalent", "gnina_tpu_torch.chem.molcache",
+            "gnina_tpu_torch.models.torchscript_import",
+            "gnina_tpu_torch.tools.gninagrid",
+            "gnina_tpu_torch.tools.gninatyper",
+            "gnina_tpu_torch.tools.gninavis", "gnina_tpu_torch.tools.server",
+            "gnina_tpu_torch.tools.server_client",
+            "gnina_tpu_torch.tools.tognina",
+            "gnina_tpu_torch.tools.fromgnina"]
 
 
 @pytest.mark.parametrize("module", _MODULES)
