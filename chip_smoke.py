@@ -57,7 +57,13 @@ round trip, gninavis with the default ensemble (card against CPU on a few
 masked rows), the minimisation server over HTTP on 127.0.0.1 (every
 served affinity the engine's own), and --score_only --cnn_model with a
 TorchScript network traced in the phase (its CNNscore the traced module's
-forward on the port's grid; the job rescores through K1).
+forward on the port's grid; the job rescores through K1).  Phase [12] runs what scales the port out: the main
+path's dock under a two-shard Mesh on the one card against the unsharded
+dock, K3 and K5 at a lane offset, a two-process screen (--dist_nprocs 2,
+gloo on 127.0.0.1) against one-process screens of each process's subset,
+one training step of a default-ensemble model at full width against the
+same step on the CPU (alone and on a dp = 2 mesh), and native bond
+perception against the Python loop.
 
 Phases print one line each; any failed check exits non-zero.  The line
 before the last is the kernel table as JSON (`launches` counts kernel
@@ -107,22 +113,27 @@ OPS_PAIR_DERIV = 72
 LIGANDS, EXHAUSTIVENESS, MC_STEPS = 16, 8, 1024
 # phase [8]'s depth: the general path is a per-step loop of small torch
 # operations (about half a second a step at 128 lanes on an H100), so its
-# docks run 64 steps (128 until [10] needed the time) and its command-line
-# jobs 16 (32 until [11] took 86 s and the whole script 827.6 s, over the
-# 760 s allowed before a cut), not 1024 (PERF.md section 4)
-GENERAL_STEPS, GENERAL_CLI_STEPS = 64, 16
+# docks run 32 steps (128 until [10] needed the time, 64 until [12] took
+# 37.4 s and the whole script about 805 s, over the 760 s allowed before a
+# cut; 48 would run as 64: the engine docks in chunks of 32 steps at 128
+# lanes) and its command-line jobs 16 (32 until [11] took 86 s and the
+# whole script 827.6 s), not 1024; scripts/torch_route_gap.py compares the
+# two routes at depth (PERF.md section 4)
+GENERAL_STEPS, GENERAL_CLI_STEPS = 32, 16
 # phase [9]'s depth: flex jobs take the general path only, at 0.7-1.5 s a
 # step at 128 lanes with four flex residues, so the flex dock is cut from
-# 1024 to 32 steps at full width and its command-line jobs to 8, to keep
-# [9] under 150 s (PERF.md section 4)
-FLEX_STEPS, FLEX_CLI_STEPS = 32, 8
+# 1024 to 32 steps at full width and its command-line jobs to 4 (8 until
+# [12] pushed the whole script to about 805 s), to keep [9] under 150 s
+# (PERF.md section 4)
+FLEX_STEPS, FLEX_CLI_STEPS = 32, 4
 # phase [10]'s depth: the CNN in the loop adds a CNN evaluation of every
 # lane to each general-path step (Metropolis) and CNN minimisations of the
 # saved poses, so its dock is cut from 1024 to 8 MC steps at full width
 # (128 lanes, the three-model ensemble on 48^3 grids) and its command-line
-# jobs to 4 (at 16 steps the whole script took about 830 s on a slow host,
-# over the 800 s it must stay under; PERF.md section 4)
-CNN_STEPS, CNN_CLI_STEPS = 8, 4
+# jobs to 2 (at 16 steps the whole script took about 830 s on a slow host,
+# over the 800 s it must stay under; 4 until [12] pushed it to about 805
+# s; PERF.md section 4)
+CNN_STEPS, CNN_CLI_STEPS = 8, 2
 # phase [11]'s ligands (the first records of minout.sdf): gninagrid's
 # grids, the file tools' round trip and the served minimisations.  Cut
 # from 8 to 2 after [8]'s command-line cut: at 8, [11] took 86.0 s (a
@@ -2378,6 +2389,372 @@ def phase_tools(seed):
     return walls
 
 
+def _sdf_close(a: str, b: str, tol: float) -> bool:
+    """Two SDF texts with the same tokens, numbers within `tol`."""
+    ta, tb = a.split(), b.split()
+    if len(ta) != len(tb):
+        return False
+    for x, y in zip(ta, tb):
+        if x == y:
+            continue
+        try:
+            if abs(float(x) - float(y)) > tol:
+                return False
+        except ValueError:
+            return False
+    return True
+
+
+def _records_by_name(text: str) -> dict:
+    """{ligand name: the text of its SDF records}, in order of appearance."""
+    out = {}
+    for rec in text.split("$$$$\n"):
+        if rec.strip():
+            name = rec.split("\n", 1)[0]
+            out[name] = out.get(name, "") + rec + "$$$$\n"
+    return out
+
+
+def phase_multi(seed):
+    """[12] Multi-GPU and training at full width, on the one card.
+
+    [12a] The 16 x 8 job at MC_STEPS on the default fused route
+    (cnn_scoring="none") through dock_batch, unsharded and under a Mesh
+    that names cuda:0 twice (two shards of 8 ligands, each from its own
+    thread): the same poses (coordinates within 1e-5 A) and energies
+    within 1e-5 kcal/mol, each kernel launched by both runs.
+    [12b] K3 and K5 with lane_offset 64: a launch of lanes 64-127 alone on
+    the kernels' own Philox draws equals the whole 128-lane launch's lanes
+    64-127 bit for bit (and a launch of them without the offset does not);
+    on supplied uniforms the offset launch is held to its plain version
+    row by row, as [4] and [4c] hold the unsharded ones.
+    [12c] `python -m gnina_tpu_torch --dist_nprocs 2` as two processes on
+    the card that meet over gloo at a free port of 127.0.0.1: a screen of
+    the 16 ligands at MC_STEPS with the default CNN rescore.  The merged
+    SDF holds every ligand once in input order, and each process's
+    ligands equal a screen of its round-robin subset in this process (the
+    same text, numbers within 1e-4).
+    [12d] One SGD step of crossdock_default2018_KD_4 (the default
+    ensemble's model with the 27,648-wide heads) at its own 48^3 x 28
+    grids, on a batch of 8 of the job's poses (the receptor of [8], the
+    top pose of 8 ligands of [12a]): the loss and the updated weights
+    held to the port's CPU step within 1e-4 relative, and again on a
+    dp = 2 mesh of cuda:0 twice.  Prints ms per step.
+    [12e] Native bond perception: the library loaded; the parse of the
+    3,304-atom receptor of [8] with it and with the pure-Python loop, and
+    gninagrid's main() (the [11a] combined run) in grids/s, Python loop
+    first, then native."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from gnina_tpu_torch import _fixtures as fx
+    from gnina_tpu_torch import cli, native
+    from gnina_tpu_torch.chem import ingest
+    from gnina_tpu_torch.docking import DockingEngine, DockSettings
+    from gnina_tpu_torch.models import registry, train
+    from gnina_tpu_torch.models.typer import default_lig_typer, \
+        default_rec_typer
+    from gnina_tpu_torch.ops import fused_dock as fd
+    from gnina_tpu_torch.parallel.mesh import Mesh
+    from gnina_tpu_torch.tools import gninagrid
+
+    smi = smi_line()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    path = lambda *p: os.path.join(tmp, *p)
+    dev = torch.device("cuda")
+    rec, lig, center, size = fx.system(seed=seed, box=20.0)
+    ligs = [lig] * LIGANDS
+
+    # ---- [12a] the sharded dock -------------------------------------------
+    t_a = time.perf_counter()
+    eng = DockingEngine(DockSettings(cnn_scoring="none",
+                                     num_mc_steps=MC_STEPS,
+                                     exhaustiveness=EXHAUSTIVENESS))
+    mesh = Mesh.of(["cuda:0", "cuda:0"])
+    eng.dock_batch(rec, ligs, center, size, seed=seed, mesh=mesh)   # warm
+    whole, w_whole, c_whole = counted_dock(fd, eng, rec, ligs, center, size,
+                                           seed=seed + 2)
+    shard, w_shard, c_shard = counted_dock(fd, eng, rec, ligs, center, size,
+                                           seed=seed + 2, mesh=mesh)
+    de = dx = 0.0
+    for a, b in zip(whole, shard):
+        check(len(a) == len(b) > 0, "the sharded dock's pose counts")
+        for ra, rb in zip(a, b):
+            de = max(de, abs(ra.energy - rb.energy),
+                     abs(ra.intramol - rb.intramol))
+            dx = max(dx, float(np.abs(ra.coords - rb.coords).max()))
+    check(len(whole) == len(shard) == LIGANDS, "the sharded dock's ligands")
+    check(de <= 1e-5 and dx <= 1e-5, f"the sharded dock is off the "
+          f"unsharded one by {de:.2e} kcal/mol, {dx:.2e} A")
+    for k in ("async_mc_window", "bfgs_minimize", "eval_fg"):
+        check(c_shard.launches[k] > 0, f"the sharded dock launched no {k}")
+    check(c_shard.calls["async_mc_window"]
+          == 2 * c_whole.calls["async_mc_window"],
+          f"K3 calls {c_shard.calls} against {c_whole.calls}")
+    print(f"[12a] dock_batch {LIGANDS} x {EXHAUSTIVENESS} at {MC_STEPS} "
+          f"steps under a Mesh of cuda:0 twice (2 shards of "
+          f"{LIGANDS // 2} ligands, a thread each) vs unsharded: max "
+          f"|de| {de:.2e} kcal/mol (1e-5), |dx| {dx:.2e} A (1e-5); walls "
+          f"{w_whole:.2f} s unsharded, {w_shard:.2f} s sharded; launches "
+          f"{c_whole.launches} / {c_shard.launches}; "
+          f"{time.perf_counter() - t_a:.1f} s", flush=True)
+
+    # ---- [12b] K3 and K5 with a lane offset ------------------------------
+    sf = eng.sf
+    terms = fd.extract_vina_terms(sf)
+    pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                        margin=sf.cutoff)
+    lo, hi = np.asarray(center) - size / 2, np.asarray(center) + size / 2
+    pack = fd.build_pack(ligs, pruned.coords, pruned.types,
+                         np.ones(len(pruned.types), np.float32),
+                         EXHAUSTIVENESS, sf.table, m_pad=4, device=dev)
+    lanes, half = pack.lanes, pack.lanes // 2
+    upper = pack.with_lanes(pack.lane_lig[half:])
+    scal_h = fd.scal_vector(10.0, 10.0, 1e3, 1000.0, lo, hi, 2.0, 1.2,
+                            device=dev)
+    rng = np.random.default_rng(seed + 12)
+    r, t = fx.packed_poses(rng, lanes, lo, hi, lig, 4, dev, "random")
+    ecur = torch.full((lanes,), 3.0e38, device=dev)
+    up = (terms, r[half:].contiguous(), t[half:].contiguous(), scal_h, upper,
+          ecur[half:].contiguous())
+    allv = (terms, r, t, scal_h, pack, ecur)
+    rows = {}
+    for name, call, extra in (
+            ("async_mc_window", fd.async_mc_window, (128, 16, 14)),
+            ("lockstep_mc_window", fd.lockstep_mc_window, (16, 14))):
+        w = call(*allv, *extra, seed=seed + 3)
+        o = call(*up, *extra, seed=seed + 3, lane_offset=half)
+        z = call(*up, *extra, seed=seed + 3)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a[half:], b) for a, b in zip(w, o))
+        check(same, f"{name} at lane_offset {half} is not the whole "
+              f"launch's lanes {half}-{lanes - 1}")
+        check(not torch.equal(w[6][half:], z[6]),
+              f"{name} without the offset drew the same numbers")
+        rows[name] = int(w[2][half:, 4 if name == "async_mc_window"
+                              else 3].sum())
+    # on supplied uniforms, against the plain versions (the [4]/[4c] bounds)
+    s_steps, maxit = 4, 1
+    budget = 1 + maxit * fd.NUM_TRIALS
+    r, t = fx.packed_poses(rng, half, lo, hi, lig, 4, dev, "perturbed")
+    uni = torch.as_tensor(rng.random((s_steps * budget, fd.N_DRAWS, half),
+                                     dtype=np.float32), device=dev)
+    ec = ecur[half:].contiguous()
+    got = fd.async_mc_window(terms, r, t, scal_h, upper, ec, s_steps, budget,
+                             maxit, uniforms=uni, lane_offset=half)
+    torch.cuda.synchronize()
+    e_rep, _p, acc_rep, ticks = fd.replay_mc_window_plain(
+        terms, r, t, scal_h, upper, ec, got[4:], uni)
+    same = ticks == got[2][:, 2].long()
+    check(int((~same).sum()) <= max(1, 0.01 * half),
+          "K3 at the offset: Armijo flips")
+    k3_err = max_err(got[6][same][..., 0], e_rep[same])
+    check(close(got[6][same][..., 0], e_rep[same], 5e-4, 5e-3),
+          f"K3 at the offset off its plain steps by {k3_err}")
+    check(torch.equal(got[6][same][..., 1] > 0.5, acc_rep[same]),
+          "K3 at the offset: Metropolis decisions")
+    uni5 = uni[:s_steps].contiguous()
+    got = fd.lockstep_mc_window(terms, r, t, scal_h, upper, ec, s_steps, 1,
+                                uniforms=uni5, lane_offset=half)
+    torch.cuda.synchronize()
+    e_rep, _p, tr_rep, acc_rep, _c, _ = fd.replay_lockstep_window_plain(
+        terms, r, t, scal_h, upper, ec, got[4:], uni5, 1)
+    same = tr_rep == got[6][..., 2]
+    check(int((~same).sum()) <= max(1, 0.01 * same.numel()),
+          "K5 at the offset: Armijo flips")
+    k5_err = max_err(got[6][..., 0][same], e_rep[same])
+    check(close(got[6][..., 0][same].double(), e_rep[same].double(), 1e-2,
+                5e-2), f"K5 at the offset off its plain steps by {k5_err}")
+    check(torch.equal(got[6][..., 1] > 0.5, acc_rep),
+          "K5 at the offset: Metropolis decisions")
+    print(f"[12b] lane_offset {half}: K3 (S=128, budget 16) and K5 (S=16) "
+          f"on lanes {half}-{lanes - 1} alone equal the {lanes}-lane "
+          f"launches' lanes bit for bit on Philox ({rows['async_mc_window']}"
+          f" and {rows['lockstep_mc_window']} steps), without the offset "
+          f"other draws; on supplied uniforms vs the plain steps: K3 max "
+          f"|de| {k3_err:.2e} (rtol 5e-4, atol 5e-3), K5 {k5_err:.2e} "
+          f"(rtol 1e-2, atol 5e-2)", flush=True)
+
+    # ---- [12c] two processes on one card -----------------------------------
+    t_c = time.perf_counter()
+    with open(path("rec.pdb"), "w") as f:
+        f.write(fx.receptor_pdb_text(fx.ligand_center(lig), seed))
+    with open(fx.LIGAND_SDF) as f:
+        first = f.read().split("$$$$\n")[0] + "$$$$\n"
+    body = first[first.index("\n"):]
+    names = [f"lig{i:02d}" for i in range(LIGANDS)]
+    with open(path("one.sdf"), "w") as f:
+        f.write(first)
+    with open(path("ligs.sdf"), "w") as f:
+        f.write("".join(n + body for n in names))
+    for pid in range(2):
+        with open(path(f"subset{pid}.sdf"), "w") as f:
+            f.write("".join(n + body for n in names[pid::2]))
+
+    def screen_args(src, out):
+        return ["-r", path("rec.pdb"), "-l", src, "--autobox_ligand",
+                path("one.sdf"), "--exhaustiveness", str(EXHAUSTIVENESS),
+                "--num_mc_steps", str(MC_STEPS), "--seed", str(seed + 4),
+                "-o", out]
+
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gnina_tpu_torch"]
+        + screen_args(path("ligs.sdf"), path("merged.sdf"))
+        + ["--dist_nprocs", "2", "--dist_procid", str(pid),
+           "--dist_coordinator", f"127.0.0.1:{port}"], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    w_two = time.perf_counter() - t0
+    for pid, (p, (o, e)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"screen process {pid}: rc {p.returncode}"
+              f"\n{o[-2000:]}\n{e[-2000:]}")
+    check(f"Merged {LIGANDS} ligand(s) from 2 process part files"
+          in outs[0][0], "process 0 did not merge the part files")
+    with open(path("merged.sdf")) as f:
+        merged = _records_by_name(f.read())
+    check(list(merged) == names, f"merged ligands {list(merged)}")
+    w_sub = []
+    for pid in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(screen_args(path(f"subset{pid}.sdf"),
+                                  path(f"sub{pid}.sdf")) + ["-q"])
+        torch.cuda.synchronize()
+        w_sub.append(time.perf_counter() - t0)
+        check(rc == 0, f"the subset screen {pid}: rc {rc}")
+        with open(path(f"sub{pid}.sdf")) as f:
+            alone = _records_by_name(f.read())
+        check(list(alone) == names[pid::2], "subset screen ligands")
+        for name, text in alone.items():
+            check(_sdf_close(merged[name], text, 1e-4),
+                  f"{name}: the two-process screen's poses differ from the "
+                  f"subset screen's")
+    print(f"[12c] --dist_nprocs 2 on one card over gloo (127.0.0.1:{port}):"
+          f" {LIGANDS} ligands x {EXHAUSTIVENESS} at {MC_STEPS} steps, "
+          f"default CNN rescore; merged SDF holds every ligand in input "
+          f"order, each process's poses equal its subset screen's (within "
+          f"1e-4); two-process wall {w_two:.2f} s (two interpreters, each "
+          f"loading the ensemble), one-process subset screens "
+          f"{w_sub[0]:.2f} + {w_sub[1]:.2f} s; "
+          f"{time.perf_counter() - t_c:.1f} s", flush=True)
+
+    # ---- [12d] one training step at full width ---------------------------
+    t_d = time.perf_counter()
+    model = registry.load_model("crossdock_default2018_KD_4", device="cpu")
+    params = {k: v.numpy() for k, v in model.module.params().items()}
+    rt, lt = default_rec_typer(), default_lig_typer()
+    poses = [res[0] for res in shard[:8]]
+    grids = np.stack([gninagrid.make_grid(
+        rec.coords, rec.types, p.coords, lig.types, p.coords.mean(axis=0),
+        rt, lt, 0.5, 23.5, device=dev) for p in poses])
+    check(grids.shape == (8, 28, 48, 48, 48), f"grids {grids.shape}")
+    labels = np.array([1, 0] * 4, np.int32)
+    affs = np.array([-p.energy for p in poses], np.float32)
+
+    def step_on(mesh_, reps=1):
+        p, opt, step = train.train_setup(mesh_, model.spec, params, 1e-3)
+        dev_ = mesh_.row(0)[0]
+        args = [torch.as_tensor(x, device=dev_)
+                for x in (grids, labels, affs)]
+        times = []
+        for _ in range(reps):
+            if dev_.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, loss = step(p, opt, *args)
+            if dev_.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(loss), train.gather_params(p), times
+
+    loss_c, p_c, t_cpu = step_on(Mesh.of(["cpu"]))
+    out = {}
+    for tag, m_ in (("one", Mesh.of(["cuda:0"])),
+                    ("dp2", Mesh.of(["cuda:0", "cuda:0"]))):
+        loss_g, p_g, times = step_on(m_, reps=3)
+        # the first of 3 steps from the same start is compared; the last
+        # two time the step warm
+        loss_1, p_1, _ = step_on(m_, reps=1)
+        check(abs(loss_1 - loss_c) <= 1e-4 * abs(loss_c),
+              f"[12d] {tag}: loss {loss_1} against the CPU's {loss_c}")
+        werr = max(float((p_1[k] - p_c[k]).abs().max()
+                         / max(float(p_c[k].abs().max()), 1e-30))
+                   for k in p_c)
+        derr = max(float(((p_1[k] - params[k]) - (p_c[k] - params[k]))
+                         .abs().max()) for k in p_c)
+        check(werr <= 1e-4, f"[12d] {tag}: weights off the CPU step by "
+              f"{werr:.2e} relative")
+        out[tag] = (loss_1, werr, derr, 1e3 * float(np.mean(times[1:])))
+    print(f"[12d] one SGD step (lr 1e-3, momentum 0.9) of "
+          f"crossdock_default2018_KD_4 on 8 poses at 48^3 x 28: loss "
+          f"{loss_c:.6f} on the CPU, "
+          + "; ".join(f"{k} loss {v[0]:.6f}, weights within {v[1]:.2e} "
+                      f"relative (1e-4), update within {v[2]:.2e}, "
+                      f"{v[3]:.1f} ms a step" for k, v in out.items())
+          + f"; the CPU step {1e3 * t_cpu[0]:.1f} ms; "
+          f"{time.perf_counter() - t_d:.1f} s", flush=True)
+
+    # ---- [12e] native bond perception --------------------------------------
+    check(native.loaded(), "native bond perception did not load")
+    real = native.perceive_bonds_native
+
+    def parse():
+        t0 = time.perf_counter()
+        r_ = ingest.Receptor.from_file(path("rec.pdb"))
+        return r_, time.perf_counter() - t0
+
+    def grids_per_s():
+        with open(fx.LIGAND_SDF) as f:
+            blocks = f.read().split("$$$$\n")[:TOOLS_LIGANDS]
+        with open(path("gl.sdf"), "w") as f:
+            f.write("".join(b + "$$$$\n" for b in blocks))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = gninagrid.main(["-r", path("rec.pdb"), "-l", path("gl.sdf"),
+                             "-o", path("grid")])
+        torch.cuda.synchronize()
+        check(rc == 0, f"gninagrid rc {rc}")
+        return TOOLS_LIGANDS / (time.perf_counter() - t0)
+
+    try:
+        native.perceive_bonds_native = lambda *a, **k: None
+        r_py, t_py = parse()
+        g_py = grids_per_s()
+    finally:
+        native.perceive_bonds_native = real
+    r_nat, t_nat = parse()
+    g_nat = grids_per_s()
+    check(np.array_equal(r_py.types, r_nat.types) and len(r_nat.types) == 3304,
+          "the receptor's typing differs between the two perceptions")
+    print(f"[12e] native bond perception loaded "
+          f"({os.path.basename(native.library_path())}); the 3,304-atom "
+          f"receptor parses in {1e3 * t_nat:.1f} ms native against "
+          f"{1e3 * t_py:.1f} ms in the Python loop; gninagrid main() "
+          f"{g_py:.2f} grids/s with the Python loop, {g_nat:.2f} native "
+          f"({TOOLS_LIGANDS} ligands, 48^3 x 28)", flush=True)
+    print(f"[12] multi-GPU, training, native perception: "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+
+
 def read_counts(fd):
     """Every wrapper's counts as dicts by kernel name: kernel launches (in
     all, by the call's lane count, by mode, with done_frac < 1) and wrapper
@@ -2417,6 +2794,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_main = time.perf_counter()
 
     import torch
 
@@ -3330,6 +3708,9 @@ def main():
     # ---- 11. the tools (K1 under --score_only --cnn_model) -----------------
     phase_tools(args.seed)
 
+    # ---- 12. multi-GPU, training, native perception (K1-K5) ----------------
+    phase_multi(args.seed)
+
     table = {"kernels": [dict(
         name=row["name"], route="cuda",
         source=row.get("source", "gnina_tpu_torch/csrc/fused_dock.cu"),
@@ -3339,6 +3720,8 @@ def main():
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], library_ms=row.get("library_ms"))
         for row in rows]}
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_main:.1f} s", flush=True)
     print(smi)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -106,14 +106,30 @@ class Molecule:
         """Distance-based connectivity (for PDB/XYZ input).
 
         Two atoms bond if dist < r_cov(a) + r_cov(b) + tolerance; grid-hashed
-        so receptor-scale molecules stay O(N).  Pure Python: this package
-        carries no native host extension.
+        so receptor-scale molecules stay O(N).  Uses the native C++ kernel
+        (gnina_tpu_torch/native) when it builds: a receptor drops from
+        seconds to about a millisecond.  Its cells are sized by the largest
+        radius present, so it lists the same bonds in another order than
+        the pure-Python loop below, which runs only without g++.
         """
         self.bonds = []
         coords = self.coords()
         n = len(self.atoms)
         if n == 0:
             return
+
+        from gnina_tpu_torch.native import perceive_bonds_native, \
+            warn_fallback
+
+        radii = np.array([el.covalent_radius(a.anum) for a in self.atoms],
+                         np.float32)
+        anums = np.array([a.anum for a in self.atoms], np.int32)
+        pairs = perceive_bonds_native(coords, radii, anums, tolerance)
+        if pairs is not None:
+            self.bonds = [Bond(int(a), int(b), 1) for a, b in pairs]
+            self.invalidate()
+            return
+        warn_fallback()
         cell = 2.0 * max(el.COVALENT_RADIUS.values()) + tolerance
         grid = {}
         keys = np.floor(coords / cell).astype(np.int64)

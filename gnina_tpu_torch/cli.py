@@ -17,8 +17,13 @@ Differences from the JAX CLI, all forced by the port:
   are shared, and the port's kernels take their shapes at run time.
 - Buckets are docked in a plain loop; `--no_compile_ahead` is accepted
   without effect (its two worker threads overlap XLA compiles).
-- Flags whose modules are not ported yet (multi-GPU) parse and then raise
-  NotImplementedError naming their ROADMAP.md item, before any work.
+
+Multi-GPU: a screen on the default device with more than one card shards
+each batch (8 ligands a card) over a "dp" mesh of every card
+(parallel/mesh.py); `--dist_nprocs N` (or GNINA_TPU_NPROCS) runs a screen
+as N processes that meet over a gloo process group at `--dist_coordinator
+host:port` (parallel/multihost.py), each docking the round-robin slice of
+the ligands into `{out}.part{pid}`, which process 0 merges in input order.
 
 The GNINA_TPU_FUSED_* environment knobs keep their names.
 """
@@ -224,7 +229,7 @@ def build_parser() -> argparse.ArgumentParser:
     gmisc.add_argument("--dist_procid", type=int, default=None,
                        help="this process's rank (default $GNINA_TPU_PROCID)")
     gmisc.add_argument("--dist_coordinator", default=None,
-                       help="jax.distributed coordinator host:port "
+                       help="process-group coordinator host:port "
                             "(default $GNINA_TPU_COORDINATOR)")
     gmisc.add_argument("--flex_hydrogens", action="store_true",
                        help="leave rotatable hydrogen branches mobile "
@@ -269,24 +274,6 @@ class Tee:
             self.f.close()
 
 
-# ROADMAP.md items of the modules still to port, by number
-_ITEMS = {
-    14: "Queue 1 item 14: multi-GPU",
-}
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose module is not ported yet,
-    naming its ROADMAP.md item; nothing is silently ignored."""
-    checks = [
-        ((args.dist_nprocs or 1) > 1, "--dist_nprocs > 1", 14),
-    ]
-    for hit, flag, item in checks:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md, {_ITEMS[item]})")
-
-
 def _cnn_debug_outputs(args, cnn, rec, lig, result, log):
     """--cnn_outputxyz/--cnn_outputdx/--cnn_gradient_check on the top pose
     (main.cpp:1007,1030-1033; see models/debug_out.py)."""
@@ -318,6 +305,15 @@ def _cnn_debug_outputs(args, cnn, rec, lig, result, log):
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
+    from gnina_tpu_torch.parallel import multihost
+
+    try:
+        return _main(argv, device)
+    finally:
+        multihost.shutdown()
+
+
+def _main(argv: Optional[List[str]], device) -> int:
     parser = build_parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     args, unknown = parser.parse_known_args(argv)
@@ -366,12 +362,24 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             log.write(f"ERROR: cannot read file {path}\n")
             return 1
 
-    # the multi-host environment contract of the JAX CLI (flags override)
-    args.dist_nprocs = args.dist_nprocs or int(
-        os.environ.get("GNINA_TPU_NPROCS", "1"))
+    # the multi-process environment contract of the JAX CLI
+    # (parallel/multihost.py; GNINA_TPU_{COORDINATOR,NPROCS,PROCID}, flags
+    # override)
+    from gnina_tpu_torch.parallel import multihost
+
+    env_coord, env_np, env_pid = multihost.env_config()
+    args.dist_nprocs = args.dist_nprocs or env_np
+    args.dist_procid = (args.dist_procid if args.dist_procid is not None
+                        else env_pid)
+    args.dist_coordinator = args.dist_coordinator or env_coord
     scoring = args.scoring if args.scoring != "default" else "vina"
-    check_ported(args)
     dev = device_from_flag(args.device if args.device is not None else device)
+    if args.dist_nprocs > 1:
+        multihost.init(args.dist_coordinator, args.dist_nprocs,
+                       args.dist_procid)
+        if args.verbosity > 0:
+            log.write(f"Multi-host screen: process {args.dist_procid} of "
+                      f"{args.dist_nprocs}\n")
 
     # --minimize softens the defaults (main.cpp:1152-1166): forcecap 10,
     # converge (10000 iters), accurate line search; plain --local_only
@@ -725,10 +733,31 @@ def _write_pose_table(log, results) -> None:
                   f"{r.cnnscore:11.4f} {r.cnnaffinity:9.3f}\n")
 
 
+def _screen_mesh(log, verbosity: int, dev):
+    """The screen's ligand sharding: a "dp" mesh over every card when the
+    screen runs on the default card and more than one is present
+    (gnina_tpu/cli.py:708-722), else None."""
+    import torch
+
+    if dev.type != "cuda" or dev.index is not None \
+            or torch.cuda.device_count() <= 1:
+        return None
+    from gnina_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(tp=1)
+    if verbosity > 1:
+        log.write(f"Sharding ligand batches over {mesh.shape['dp']} "
+                  "devices\n")
+    return mesh
+
+
 def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                 log, t_start, render_poses) -> int:
     """Batched virtual screen: bucket ligands by padded shape, dock each
-    bucket in batches of 8 on the device, write results in input order."""
+    bucket in batches of 8 a card, write results in input order.  Under
+    --dist_nprocs this process docks its round-robin slice and process 0
+    merges the part files."""
+    from gnina_tpu_torch.parallel import multihost
 
     def bucket_key(lig):
         def up(x, m):
@@ -741,8 +770,16 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
     if not all_ligs:
         log.write("ERROR: no ligands could be read\n")
         return 1
-    batch_size = 8
+    mesh = _screen_mesh(log, args.verbosity, engine.device)
+    n_dev = mesh.shape["dp"] if mesh is not None else 1
+    batch_size = max(8, 8 * n_dev)
     order = {id(l): i for i, l in enumerate(all_ligs)}
+    nprocs = getattr(args, "dist_nprocs", 1) or 1
+    pid = getattr(args, "dist_procid", 0) or 0
+    dist = nprocs > 1
+
+    def mine(idx: int) -> bool:
+        return (idx % nprocs) == pid
 
     # crash recovery: finished ligands stream to {out}.partial as framed SDF
     # chunks; --resume reloads them and docks only the remainder.  The
@@ -750,6 +787,8 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
     # zero.
     results_by_idx = {}
     partial_path = (args.out + ".partial") if args.out else None
+    if dist and partial_path:
+        partial_path = f"{args.out}.h{pid}.partial"  # per-process checkpoint
     resumed = set()
     if getattr(args, "resume", False) and partial_path and \
             os.path.exists(partial_path):
@@ -787,7 +826,7 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
 
     buckets = {}
     for lig in all_ligs:
-        if order[id(lig)] not in resumed:
+        if order[id(lig)] not in resumed and mine(order[id(lig)]):
             buckets.setdefault(bucket_key(lig), []).append(lig)
 
     if args.verbosity > 1 and len(buckets) > 1:
@@ -805,7 +844,7 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
         t_bucket = time.time()
         try:
             res_b = engine.dock_batch(rec, chunk, center, box_size,
-                                      seed=args.seed)
+                                      seed=args.seed, mesh=mesh)
         except Exception as e:
             # the whole batch failed: retry ligand-by-ligand so one
             # poisoned molecule costs only itself (the reference
@@ -851,12 +890,19 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
     out_chunks = []
     out_flex_chunks = []
     atom_chunks = []
-    for i in range(len(all_ligs)):
+    if dist and (args.atom_terms or args.out_flex):
+        log.write("WARNING: --atom_terms/--out_flex are per-process under "
+                  "--dist_nprocs; only this process's ligands are "
+                  "included\n")
+    indexed_chunks = []  # (global index, sdf text) for the part file
+    my_indices = sorted(results_by_idx) if dist else range(len(all_ligs))
+    for i in my_indices:
         kind, a, b = results_by_idx[i]
         if kind == "text":
             log.write(f"\n## {a} (resumed)\n")
             sdf_body, flex_body = b
             out_chunks.append(sdf_body)
+            indexed_chunks.append((i, sdf_body))
             if flex_body:
                 out_flex_chunks.append(flex_body)
             continue
@@ -867,15 +913,29 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
             text, tables = render_poses(lig, results)
             if args.out:
                 out_chunks.append(text)
+                indexed_chunks.append((i, text))
             if args.atom_terms and tables:
                 atom_chunks.extend(tables)
         if args.out_flex and lig.flex_meta:
             out_flex_chunks.append(write_flex_pdb(
                 lig, results,
                 rigid=rec.mol if args.full_flex_output else None))
-    if args.out:
+    if args.out and dist:
+        # each process writes its slice; process 0 stitches the input
+        # order back together after the barrier (parallel/multihost.py)
+        with open(multihost.part_path(args.out, pid), "w") as f:
+            for i, text in indexed_chunks:
+                f.write(f"#GNINA_TPU_IDX {i} {all_ligs[i].name}\n")
+                f.write(text)
+        multihost.barrier("screen-output")
+        if pid == 0:
+            n_merged = multihost.merge_part_outputs(args.out, nprocs)
+            log.write(f"Merged {n_merged} ligand(s) from {nprocs} "
+                      "process part files\n")
+    elif args.out:
         with open(args.out, "w") as f:
             f.write("".join(out_chunks))
+    if args.out:
         if partial_path and os.path.exists(partial_path):
             os.remove(partial_path)  # the final ordered output supersedes it
     if args.atom_terms:

@@ -1612,16 +1612,19 @@ __device__ void draw_uniforms(const Smem& s, const float* uniforms, int idx,
 // Per-pose MC window: a state machine over (step, BFGS iteration, Armijo
 // trial), one fused value+gradient eval per tick, at most
 // mc_steps * tick_budget ticks.  Tick k draws 13 uniforms: from Philox
-// keyed on (seed, lane) with counter (k, 0..3), or from the supplied
-// uniforms (ticks, 13, L).  Candidates stream out completion-indexed.
+// keyed on (seed, lane_offset + lane) with counter (k, 0..3), or from the
+// supplied uniforms (ticks, 13, L).  lane_offset is the global index of the
+// call's lane 0 when the lanes are one shard of a larger batch, so a shard
+// draws what the whole batch's launch draws for the same lanes.  Candidates stream out completion-indexed.
 // warm_ls (K6): a pose's Armijo exponent starts at max(wa - 1, 0), where wa
 // is the exponent of its last accepted step, reset to 0 at each new
 // candidate; with the flag off the exponent is the trial count as before.
 __global__ void __launch_bounds__(NT, MINB_ASYNC_MC) k_async_mc(
     PackArgs pk, TermArgs ta, const float* rigid0, const float* tors0,
     const float* scal, const float* ecur0, const float* uniforms,
-    uint32_t seed, int mc_steps, int tick_budget, int maxiters,
-    int num_trials, float log2_factor, int warm_ls, float* orig, float* otor,
+    uint32_t seed, int lane_offset, int mc_steps, int tick_budget,
+    int maxiters, int num_trials, float log2_factor, int warm_ls, float* orig,
+    float* otor,
     float* stats, float* ocoords, float* srig, float* stor, float* sstat) {
   const int lane = blockIdx.x;
   Ctx c;
@@ -1645,7 +1648,7 @@ __global__ void __launch_bounds__(NT, MINB_ASYNC_MC) k_async_mc(
   float n_eval = 0.0f, n_ok = 0.0f;
   set_eye(s.h, 1.0f, D);
   const int t_total = mc_steps * tick_budget;
-  const uint2 key = make_uint2(seed, (uint32_t)lane);
+  const uint2 key = make_uint2(seed, (uint32_t)(lane_offset + lane));
   for (int tick = 0; tick < t_total && stepc < mc_steps; ++tick) {
     draw_uniforms(s, uniforms, tick, L, lane, key);
     const float* u = s.sc + S_U;
@@ -1729,8 +1732,8 @@ __global__ void __launch_bounds__(NT, MINB_ASYNC_MC) k_async_mc(
 // K5: step-indexed in-kernel MC (mc_body).  Each of mc_steps steps: FK of
 // the chain state, gyration, one-DOF mutation, one whole BFGS (bfgs_run, in
 // either line-search mode), Metropolis with one uniform.  Step k draws 13
-// uniforms: Philox keyed on (seed, lane) with counter (k, 0..3), or the
-// supplied uniforms (steps, 13, L).  Every stream row is written: srig
+// uniforms: Philox keyed on (seed, lane_offset + lane) with counter (k,
+// 0..3), as in K3, or the supplied uniforms (steps, 13, L).  Every stream row is written: srig
 // (L, S, 8), stor (L, S, M), sstat (L, S, 3) = (Metropolis energy,
 // accepted, Armijo trial evaluations of the step); stats (L, 8) = [e, e,
 // trial evaluations, iterations, accepted iterations, 0...].  The
@@ -1744,9 +1747,9 @@ template <bool COUPLED>
 __global__ void __launch_bounds__(NT, MINB_LOCKSTEP_MC) k_lockstep_mc(
     PackArgs pk, TermArgs ta, const float* rigid0, const float* tors0,
     const float* scal, const float* ecur0, const float* uniforms,
-    uint32_t seed, int mc_steps, int maxiters, int num_trials,
-    float log2_factor, int async_ls, float* orig, float* otor, float* stats,
-    float* ocoords, float* srig, float* stor, float* sstat,
+    uint32_t seed, int lane_offset, int mc_steps, int maxiters,
+    int num_trials, float log2_factor, int async_ls, float* orig, float* otor,
+    float* stats, float* ocoords, float* srig, float* stor, float* sstat,
     unsigned int* gsync, int slots_per_group, int done_target, int lane0) {
   const int lane = lane0 + blockIdx.x;
   Ctx c;
@@ -1759,7 +1762,7 @@ __global__ void __launch_bounds__(NT, MINB_LOCKSTEP_MC) k_lockstep_mc(
   read_pose(rigid0, tors0, lane, M, s.c_rig, s.c_tor);
   float e_cur = ecur0[lane];
   float n_evals = 0.0f, n_iters = 0.0f, n_acc = 0.0f, g_iters = 0.0f;
-  const uint2 key = make_uint2(seed, (uint32_t)lane);
+  const uint2 key = make_uint2(seed, (uint32_t)(lane_offset + lane));
   const int run_slots = async_ls ? maxiters * num_trials + 1 : maxiters;
   const GroupSync gs = group_sync(gsync, mc_steps, run_slots, done_target,
                                   lane, L, M);
@@ -1940,7 +1943,8 @@ int gt_bfgs_minimize(const PackArgs* pk, const TermArgs* tm, const float* rigid,
 int gt_async_mc_window(const PackArgs* pk, const TermArgs* tm,
                        const float* rigid, const float* tors, const float* scal,
                        const float* ecur, const float* uniforms, uint32_t seed,
-                       int mc_steps, int tick_budget, int maxiters,
+                       int lane_offset, int mc_steps, int tick_budget,
+                       int maxiters,
                        int num_trials, float log2_factor, int warm_ls,
                        float* orig, float* otor, float* stats, float* ocoords,
                        float* srig, float* stor, float* sstat, void* stream,
@@ -1954,7 +1958,8 @@ int gt_async_mc_window(const PackArgs* pk, const TermArgs* tm,
   PackArgs pkv = *pk;
   TermArgs tmv = *tm;
   void* args[] = {&pkv, &tmv, &rigid, &tors, &scal, &ecur, &uniforms, &seed,
-                  &mc_steps, &tick_budget, &maxiters, &num_trials,
+                  &lane_offset, &mc_steps, &tick_budget, &maxiters,
+                  &num_trials,
                   &log2_factor, &warm_ls, &orig, &otor, &stats, &ocoords,
                   &srig, &stor, &sstat};
   return launch_all(kernel, pk->L, smem, (cudaStream_t)stream, args,
@@ -1964,8 +1969,9 @@ int gt_async_mc_window(const PackArgs* pk, const TermArgs* tm,
 int gt_lockstep_mc_window(const PackArgs* pk, const TermArgs* tm,
                           const float* rigid, const float* tors,
                           const float* scal, const float* ecur,
-                          const float* uniforms, uint32_t seed, int mc_steps,
-                          int maxiters, int num_trials, float log2_factor,
+                          const float* uniforms, uint32_t seed,
+                          int lane_offset, int mc_steps, int maxiters,
+                          int num_trials, float log2_factor,
                           int async_ls, float* orig, float* otor, float* stats,
                           float* ocoords, float* srig, float* stor,
                           float* sstat, unsigned int* gsync,
@@ -1982,7 +1988,8 @@ int gt_lockstep_mc_window(const PackArgs* pk, const TermArgs* tm,
   PackArgs pkv = *pk;
   TermArgs tmv = *tm;
   void* args[] = {&pkv, &tmv, &rigid, &tors, &scal, &ecur, &uniforms, &seed,
-                  &mc_steps, &maxiters, &num_trials, &log2_factor, &async_ls,
+                  &lane_offset, &mc_steps, &maxiters, &num_trials,
+                  &log2_factor, &async_ls,
                   &orig, &otor, &stats, &ocoords, &srig, &stor, &sstat,
                   &gsync, &slots_per_group, &done_target, &lane0};
   if (gsync)

@@ -37,11 +37,18 @@ saved poses in the stages (refinement, metrorefine, all) and is the MC
 step's BFGS objective (all, with no search grids); minimize refines with
 it under refinement, metrorefine and all.  Ordinary PyTorch over the
 scorer's voxelizer and networks (_build_cnn_objective), no kernel.
+
+dock_batch(mesh=) docks the batch in shards, one a "dp" row of a
+parallel.mesh.Mesh, on either route (the JAX engine's shard_map): the
+random numbers are drawn once for the whole batch and each shard takes
+its lanes' share, so the shards together dock what one device docks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -137,6 +144,61 @@ class PoseResult:
     within_box: bool = True
 
 
+class _SharedDraws:
+    """The random draws of one batch, made in the unsharded run's order
+    and handed to every shard: chunk k is drawn once, after every earlier
+    chunk, by whichever shard asks first; once each of the `readers`
+    shards has taken it, it is dropped."""
+
+    def __init__(self, draw_chunk, readers: int):
+        self._draw = draw_chunk
+        self._readers = readers
+        self._lock = threading.Lock()
+        self._made = 0
+        self._chunks = {}
+        self._left = {}
+
+    def get(self, k: int):
+        with self._lock:
+            while self._made <= k:
+                self._chunks[self._made] = self._draw(self._made)
+                self._left[self._made] = self._readers
+                self._made += 1
+            out = self._chunks[k]
+            self._left[k] -= 1
+            if not self._left[k]:
+                del self._chunks[k], self._left[k]
+            return out
+
+
+def _run_shards(devices, fn):
+    """[fn(i) for each shard]: in this thread for one shard, else one
+    thread a shard with its card current, so that shards on distinct
+    cards enqueue at once and overlap."""
+    if len(devices) == 1:
+        return [fn(0)]
+
+    def run(i):
+        if devices[i].type == "cuda":
+            with torch.cuda.device(devices[i]):
+                return fn(i)
+        return fn(i)
+
+    with ThreadPoolExecutor(max_workers=len(devices)) as ex:
+        futures = [ex.submit(run, i) for i in range(len(devices))]
+        return [f.result() for f in futures]
+
+
+def _carry_slice(carry: mc.MCCarry, l0: int, l1: int, device) -> mc.MCCarry:
+    """Lanes l0..l1-1 of a chain state, on `device`."""
+    def sl(x):
+        return x[l0:l1].to(device)
+
+    return mc.MCCarry(*[mc.PoseContainer(*[sl(y) for y in x])
+                        if isinstance(x, mc.PoseContainer) else sl(x)
+                        for x in carry])
+
+
 def _round_up(x: int, m: int) -> int:
     return max(((x + m - 1) // m) * m, m)
 
@@ -202,8 +264,8 @@ def _minimize_iters_heuristic(lig: LigandStruct, settings: DockSettings) -> int:
 
 
 class DockingEngine:
-    """Docking on one device, through the fused kernels or the general
-    path (module docstring).
+    """Docking on one device, or on a mesh of them (dock_batch(mesh=)),
+    through the fused kernels or the general path (module docstring).
 
     cnn_scorer: a models.scorer.CNNScorer, or None.  Without one the engine
     docks without a CNN whatever cnn_scoring says (scores 0.0, sort `auto`
@@ -822,16 +884,50 @@ class DockingEngine:
         return self.dock_batch(rec, [lig], center, size, seed=seed)[0]
 
     def dock_batch(self, rec: Receptor, ligs: List[LigandStruct], center,
-                   size, seed: Optional[int] = None) -> List[List[PoseResult]]:
+                   size, seed: Optional[int] = None,
+                   mesh=None) -> List[List[PoseResult]]:
         """Dock a batch of ligands against one receptor/box: (ligands x
         exhaustiveness) MC chains run as one lane axis on the device.  All
         ligands share the MC step count (max of the per-ligand heuristics,
-        main.cpp:449-456) so the batch stays rectangular."""
-        s = self.settings
+        main.cpp:449-456) so the batch stays rectangular.
+
+        mesh: an optional parallel.mesh.Mesh.  The ligand list is padded to
+        a multiple of its "dp" size (with copies of the last ligand, whose
+        results are dropped) and split into dp contiguous shards, each
+        docked on its row's first device, from its own thread, with no
+        communication until the results are gathered (the JAX engine's
+        shard_map, gnina_tpu/docking.py:794-816).  Every random number is
+        drawn once for the whole batch, in the unsharded run's order, and
+        each shard takes its lanes' share: the chain heads and host-driven
+        draws by slicing, the in-kernel windows' seeds whole with the
+        shard's first global lane as the kernels' lane_offset.  So a
+        sharded dock equals the unsharded one wherever the lanes do not
+        interact, that is at fused_done_frac = 1 (K8 couples groups of 128
+        lanes, which a shard boundary splits otherwise)."""
         if not ligs:
             raise ValueError("empty ligand batch")
+        n_real = len(ligs)
+        if mesh is not None:
+            dp = mesh.shape["dp"]
+            ligs = list(ligs) + [ligs[-1]] * ((-len(ligs)) % dp)
         if not self._fused_route(ligs):
-            return self._dock_general(rec, ligs, center, size, seed)
+            return self._dock_general(rec, ligs, center, size, seed,
+                                      mesh)[:n_real]
+        return self._dock_fused(rec, ligs, center, size, seed,
+                                mesh)[:n_real]
+
+    def _shard_devices(self, mesh) -> List[torch.device]:
+        """One device per shard: each "dp" row's first device, or the
+        engine's own without a mesh."""
+        if mesh is None:
+            return [self.device]
+        return [torch.device(mesh.devices[i, 0])
+                for i in range(mesh.shape["dp"])]
+
+    def _dock_fused(self, rec: Receptor, ligs: List[LigandStruct], center,
+                    size, seed: Optional[int], mesh) -> List[List[PoseResult]]:
+        """dock_batch on the fused route (the kernels K1-K8)."""
+        s = self.settings
         dev = self.device
         n = _round_up(max(l.num_atoms for l in ligs), 8)
         m = _round_up(max(l.num_nodes for l in ligs), 4)
@@ -847,16 +943,13 @@ class DockingEngine:
         num_out = max(s.num_modes, s.num_mc_saved)
         e = s.exhaustiveness
         lanes = len(ligs) * e
+        devices = self._shard_devices(mesh)
+        dp = len(devices)
+        gps = len(ligs) // dp                   # ligands a shard
 
         pack = fd.build_pack(ligs, pruned.coords, pruned.types,
                              np.ones(kr, np.float32), e, self.sf.table,
-                             m_pad=m, device=dev)
-        meta = mc_fused.lane_meta(pack)
-        # second lane layout for the finish stages: one lane per saved pose
-        pack_out = pack.with_lanes(torch.arange(
-            len(ligs), device=dev, dtype=torch.int32).repeat_interleave(
-                num_out))
-        heavy_g = torch.as_tensor(pack.heavy_idx >= 0, device=dev)
+                             m_pad=m, device=devices[0], shards=dp)
 
         # window schedule: the JAX package's arithmetic (docking.py:994-1051)
         base_chunk = int(s.mc_chunk_steps) or num_steps
@@ -874,92 +967,137 @@ class DockingEngine:
         refine_subs = max(1, mcs // max(r_every, 1))
         while mcs % refine_subs:
             refine_subs -= 1
+        n_chunks = -(-num_steps // chunk)
 
         common = dict(num_trials=s.fused_ls_trials,
                       ls_factor=s.fused_ls_factor, async_ls=s.fused_async_ls,
                       done_frac=s.fused_done_frac)
-        fused_ref = fd.FusedBfgs(self.sf, pack, miniters, want_metro=True,
-                                 **common)
-        fused_out = fd.FusedBfgs(self.sf, pack_out, miniters,
-                                 want_metro=False, **common)
-        fused_mc = None
-        if s.fused_mc_in_kernel:
-            fused_mc = fd.FusedBfgs(
-                self.sf, pack, miniters, want_metro=True, mc_steps=mcs,
-                tick_budget=s.fused_mc_tick_budget,
-                async_mc=s.fused_async_mc, warm_ls=s.fused_warm_ls, **common)
         mcpar = mc.MCParams(temperature=s.temperature,
                             num_saved_mins=num_out,
                             refine_stride=s.refine_stride)
         hc = mcpar.hunt_cap
         slope = 1e3
-        scal_h = fd.scal_vector(hc[0], hc[1], slope, 1000.0, lo, hi,
-                                mcpar.mutation_amplitude, mcpar.temperature,
-                                device=dev)
-        scal_f = fd.scal_vector(1000.0, 1000.0, slope, 1000.0, lo, hi,
-                                device=dev)
 
+        # every draw of the batch, in the unsharded run's order: the chain
+        # heads, then each chunk's window seeds (in-kernel windows) or step
+        # draws (host-driven steps), handed to the shards chunk by chunk
         gen = torch.Generator(device="cpu")
         gen.manual_seed(int(seed if seed is not None else s.seed))
+        all_lanes = pack.real_lanes()
         with torch.no_grad():
             carry = mc.mc_init(lanes, m, mcpar, lo, hi, pack.dims[0], gen,
-                               lambda r, t: fd.fk_packed(r, t, pack),
-                               device=dev)
-            done = 0
-            while done < num_steps:
-                if fused_mc is not None:
-                    carry = mc_fused.fused_mc_chunk_inkernel(
-                        carry, gen, chunk, fused_mc, fused_ref, pack, scal_h,
-                        scal_f, meta, mcpar, m - 1, refine_subs=refine_subs)
-                else:
-                    carry = mc_fused.fused_mc_chunk(
-                        carry, gen, chunk, fused_ref, pack, scal_h, scal_f,
-                        meta, mcpar, m - 1)
-                done += chunk
-                if self.progress is not None:
-                    self.progress(
-                        f"MC {min(done, num_steps)}/{num_steps} steps "
-                        f"({len(ligs)} ligand(s) x {s.exhaustiveness} "
-                        f"chains)")
+                               lambda r, t: fd.fk_packed(r, t, all_lanes),
+                               device=devices[0])
+        if s.fused_mc_in_kernel:
+            def draw_chunk(_k):
+                return [int(torch.randint(0, 1 << 30, (1,), generator=gen))
+                        for _ in range(chunk // mcs)]
+        else:
+            meta_all = mc_fused.lane_meta(all_lanes)
 
-            # merge: per-ligand top num_out over all chains (min_rmsd 2)
-            lg = len(ligs)
-            conts = mc.PoseContainer(*[x.reshape((lg, e) + x.shape[1:])
-                                       for x in carry.cont])
-            merged = mc.merge_containers(conts, heavy_g, 2.0, num_out)
-            menergy = merged.energy                              # (lg, out)
-            mconf = Conf(position=merged.position.reshape(-1, 3),
-                         orientation=merged.orientation.reshape(-1, 4),
-                         torsions=merged.torsions.reshape(-1, m - 1))
-            rigid, tors = fd.conf_to_packed(mconf, m)
-            mdone = torch.zeros(lg * num_out, dtype=torch.bool, device=dev)
+            def draw_chunk(_k):
+                return [(mc.draw_mutation(gen, meta_all.ntors,
+                                          meta_all.has_rigid, device="cpu"),
+                         torch.rand(lanes, generator=gen,
+                                    dtype=torch.float32))
+                        for _ in range(chunk)]
+        draws = _SharedDraws(draw_chunk, dp)
 
-            # refine_structure stages (main.cpp:144-158): authentic-v BFGS
-            # at box slope 10^(i+1), one lane per (ligand, saved pose)
-            cap_v = float(s.forcecap)
-            heavy_out = pack_out.ap[pack_out.lane_lig.long(), :, 4] > 0
-            lo_t = torch.as_tensor(lo, device=dev)
-            hi_t = torch.as_tensor(hi, device=dev)
-            for stage_i in range(5):
-                scal = fd.scal_vector(cap_v, cap_v, 10.0 ** (stage_i + 1),
-                                      cap_v, lo, hi, device=dev)
-                org, otr, _stats, coords_h = fused_out(rigid, tors, scal)
-                margin = 0.0001
-                ok = ((coords_h >= lo_t - margin)
-                      & (coords_h <= hi_t + margin)).all(-1)
-                new_done = torch.where(heavy_out, ok, True).all(-1)
-                rigid = torch.where(mdone[:, None], rigid, org)
-                tors = torch.where(mdone[:, None], tors, otr)
-                mdone = mdone | new_done
+        def run_shard(i: int):
+            sdev = devices[i]
+            l0, l1 = i * gps * e, (i + 1) * gps * e
+            pk = pack.shard(i, dp).to(sdev) if dp > 1 else pack
+            meta = mc_fused.lane_meta(pk)
+            # second lane layout for the finish stages: one lane per saved
+            # pose
+            pack_out = pk.with_lanes(torch.arange(
+                gps, device=sdev, dtype=torch.int32).repeat_interleave(
+                    num_out))
+            heavy_g = torch.as_tensor(pk.heavy_idx >= 0, device=sdev)
+            fused_ref = fd.FusedBfgs(self.sf, pk, miniters, want_metro=True,
+                                     **common)
+            fused_out = fd.FusedBfgs(self.sf, pack_out, miniters,
+                                     want_metro=False, **common)
+            fused_mc = None
+            if s.fused_mc_in_kernel:
+                fused_mc = fd.FusedBfgs(
+                    self.sf, pk, miniters, want_metro=True, mc_steps=mcs,
+                    tick_budget=s.fused_mc_tick_budget,
+                    async_mc=s.fused_async_mc, warm_ls=s.fused_warm_ls,
+                    lane_offset=l0, lane_total=lanes, **common)
+            scal_h = fd.scal_vector(hc[0], hc[1], slope, 1000.0, lo, hi,
+                                    mcpar.mutation_amplitude,
+                                    mcpar.temperature, device=sdev)
+            scal_f = fd.scal_vector(1000.0, 1000.0, slope, 1000.0, lo, hi,
+                                    device=sdev)
+            with torch.no_grad():
+                c = _carry_slice(carry, l0, l1, sdev)
+                for k in range(n_chunks):
+                    dr = draws.get(k)
+                    if fused_mc is not None:
+                        c = mc_fused.fused_mc_chunk_inkernel(
+                            c, None, chunk, fused_mc, fused_ref, pk, scal_h,
+                            scal_f, meta, mcpar, m - 1,
+                            refine_subs=refine_subs, seeds=dr)
+                    else:
+                        c = mc_fused.fused_mc_chunk(
+                            c, None, chunk, fused_ref, pk, scal_h, scal_f,
+                            meta, mcpar, m - 1, draws=[
+                                (mc.MutationDraws(*[x[l0:l1].to(sdev)
+                                                    for x in md]),
+                                 u[l0:l1].to(sdev)) for md, u in dr])
+                    if self.progress is not None and i == 0:
+                        self.progress(
+                            f"MC {min((k + 1) * chunk, num_steps)}/"
+                            f"{num_steps} steps ({len(ligs)} ligand(s) x "
+                            f"{s.exhaustiveness} chains)")
 
-            # exact rescore (always the empirical affinity,
-            # main.cpp:336-343) through K1
-            inter, intra = self._exact_energies(rigid, tors, pack_out, lo,
-                                                hi, 1e3)
-            results = self._assemble(
-                rec, ligs, fd.packed_to_conf(rigid, tors, m - 1), inter,
-                intra, menergy, n, m, p, max_layers, num_out)
-        return results
+                # merge: per-ligand top num_out over all chains (min_rmsd 2)
+                conts = mc.PoseContainer(*[x.reshape((gps, e) + x.shape[1:])
+                                           for x in c.cont])
+                merged = mc.merge_containers(conts, heavy_g, 2.0, num_out)
+                mconf = Conf(position=merged.position.reshape(-1, 3),
+                             orientation=merged.orientation.reshape(-1, 4),
+                             torsions=merged.torsions.reshape(-1, m - 1))
+                rigid, tors = fd.conf_to_packed(mconf, m)
+                mdone = torch.zeros(gps * num_out, dtype=torch.bool,
+                                    device=sdev)
+
+                # refine_structure stages (main.cpp:144-158): authentic-v
+                # BFGS at box slope 10^(i+1), one lane per (ligand, saved
+                # pose)
+                cap_v = float(s.forcecap)
+                heavy_out = pack_out.ap[pack_out.lane_lig.long(), :, 4] > 0
+                lo_t = torch.as_tensor(lo, device=sdev)
+                hi_t = torch.as_tensor(hi, device=sdev)
+                for stage_i in range(5):
+                    scal = fd.scal_vector(cap_v, cap_v, 10.0 ** (stage_i + 1),
+                                          cap_v, lo, hi, device=sdev)
+                    org, otr, _stats, coords_h = fused_out(rigid, tors, scal)
+                    margin = 0.0001
+                    ok = ((coords_h >= lo_t - margin)
+                          & (coords_h <= hi_t + margin)).all(-1)
+                    new_done = torch.where(heavy_out, ok, True).all(-1)
+                    rigid = torch.where(mdone[:, None], rigid, org)
+                    tors = torch.where(mdone[:, None], tors, otr)
+                    mdone = mdone | new_done
+
+                # exact rescore (always the empirical affinity,
+                # main.cpp:336-343) through K1
+                inter, intra = self._exact_energies(rigid, tors, pack_out,
+                                                    lo, hi, 1e3)
+            return rigid, tors, inter, intra, merged.energy
+
+        parts = _run_shards(devices, run_shard)
+        with torch.no_grad():
+            rigid = torch.cat([x[0].to(dev) for x in parts])
+            tors = torch.cat([x[1].to(dev) for x in parts])
+            return self._assemble(
+                rec, ligs, fd.packed_to_conf(rigid, tors, m - 1),
+                np.concatenate([x[2] for x in parts]),
+                np.concatenate([x[3] for x in parts]),
+                torch.cat([x[4].cpu() for x in parts]), n, m, p, max_layers,
+                num_out)
 
     # -- the general path ---------------------------------------------------
 
@@ -1055,15 +1193,21 @@ class DockingEngine:
         return fns
 
     def _dock_general(self, rec: Receptor, ligs: List[LigandStruct], center,
-                      size, seed: Optional[int]) -> List[List[PoseResult]]:
+                      size, seed: Optional[int],
+                      mesh=None) -> List[List[PoseResult]]:
         """dock_batch on the general path (the JAX engine's XLA programs:
         init_fn, chunk_fn over mc.mc_chunk, merge_fn, stage_fn_xla,
         rescore_fn; docking.py:1273-1662), every ligand's chains on one
-        lane axis."""
+        lane axis; under a mesh one lane axis a shard, as in _dock_fused.
+        The CNN in the loop runs on the scorer's device, so every shard of
+        such a job must lie there."""
         s = self.settings
         dev = self.device
         g, e = len(ligs), s.exhaustiveness
         lanes = g * e
+        devices = self._shard_devices(mesh)
+        dp = len(devices)
+        gps = g // dp
         n = _round_up(max(l.num_atoms for l in ligs), 8)
         m = _round_up(max(l.num_nodes for l in ligs), 4)
         p = _round_up(max(max(len(l.pairs) for l in ligs), 1), 32)
@@ -1074,29 +1218,15 @@ class DockingEngine:
                          for l in ligs)
         pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
                             margin=self.sf.cutoff)
-        rec_d = pad_receptor(pruned.coords, pruned.types, pruned.charges,
-                             _round_up(len(pruned.types), 128), device=dev)
         lo, hi = box_from_center_size(center, size)
-        box = Box(lo=torch.as_tensor(lo, device=dev),
-                  hi=torch.as_tensor(hi, device=dev))
         q = _round_up(max(len(l.other_pairs) if l.other_pairs is not None
                           else 0 for l in ligs), 32)
-        lig_ds = [pad_ligand(l, n, m, p, q_pad=q, device=dev) for l in ligs]
-        lane_lig = torch.arange(g, device=dev).repeat_interleave(e)
-        lig_l = lane_ligands(lig_ds, lane_lig)
-        ar = torch.arange(6 + tp, device=dev)
-        dof_mask = torch.stack([
-            (ar < 6 + l.num_torsions) & (ar >= (0 if l.has_rigid_dof else 6))
-            for l in ligs])[lane_lig]
-        ntors = torch.as_tensor([l.num_torsions for l in ligs],
-                                device=dev)[lane_lig]
-        has_rigid = torch.as_tensor([l.has_rigid_dof for l in ligs],
-                                    device=dev)[lane_lig]
         num_steps = max(_num_steps_heuristic(l, s) for l in ligs)
         miniters = max(_minimize_iters_heuristic(l, s) for l in ligs)
         num_out = max(s.num_modes, s.num_mc_saved)
         base_chunk = int(s.mc_chunk_steps) or num_steps
         chunk = min(num_steps, max(32, base_chunk * 64 // max(lanes, 64)))
+        n_chunks = -(-num_steps // chunk)
         minpar = MinimizeParams(
             maxiters=miniters,
             type=("simple" if s.simple_ascent
@@ -1121,59 +1251,123 @@ class DockingEngine:
         mode = s.cnn_scoring if self._has_cnn else "none"
         cnn_search = mode == "all"
         cnn_refine = mode in ("refinement", "metrorefine", "all")
-        cnn_obj = (self._build_cnn_objective(rec, box, max_layers)
-                   if mode in _CNN_MODES else None)
-        grids = (self._populate_cache(ligs, rec_d, lo, hi)
-                 if s.search_grid and not cnn_search else None)
-        fns = self._energy_fns_for(efn, lig_l, rec_d, box, grids, max_layers,
-                                   cnn_obj=cnn_obj,
-                                   cnn_metro=cnn_obj is not None,
-                                   cnn_search=cnn_search)
+        if mode in _CNN_MODES and any(d != dev for d in devices):
+            raise ValueError("the CNN in the loop runs on the engine's "
+                             f"device {dev}: a mesh must name only it")
 
+        def lane_data(sdev, sub):
+            """The padded ligands of `sub` and their lane view on sdev."""
+            lig_ds = [pad_ligand(l, n, m, p, q_pad=q, device=sdev)
+                      for l in sub]
+            lane_lig = torch.arange(len(sub), device=sdev).repeat_interleave(
+                e)
+            return lig_ds, lane_lig, lane_ligands(lig_ds, lane_lig)
+
+        # every draw of the batch, in the unsharded run's order: the chain
+        # heads, then each chunk's step draws, handed to the shards chunk
+        # by chunk (mc.chain_steps draws a step's mutation, then its
+        # Metropolis uniforms)
+        ntors_all = torch.as_tensor([l.num_torsions for l in ligs]
+                                    ).repeat_interleave(e)
+        rigid_all = torch.as_tensor([l.has_rigid_dof for l in ligs]
+                                    ).repeat_interleave(e)
         gen = torch.Generator(device="cpu")
         gen.manual_seed(int(seed if seed is not None else s.seed))
         with torch.no_grad():
+            lig_all = lane_data(devices[0], ligs)[2]
             carry = mc.mc_init(lanes, m, mcpar, lo, hi, n, gen,
                                lambda r, t: fk.fk_coords(
-                                   lig_l, fd.packed_to_conf(r, t, tp),
-                                   max_layers), device=dev)
-            done = 0
-            while done < num_steps:
-                carry = mc.mc_chunk(carry, gen, chunk, lig_l, fns, mcpar,
-                                    max_layers, dof_mask, ntors, has_rigid)
-                done += chunk
-                if self.progress is not None:
-                    self.progress(
-                        f"MC {min(done, num_steps)}/{num_steps} steps "
-                        f"({g} ligand(s) x {e} chains)")
+                                   lig_all, fd.packed_to_conf(r, t, tp),
+                                   max_layers), device=devices[0])
+            del lig_all
 
-            # merge: per-ligand top num_out over all chains (min_rmsd 2)
-            conts = mc.PoseContainer(*[x.reshape((g, e) + x.shape[1:])
-                                       for x in carry.cont])
-            heavy_g = torch.stack([l.heavy_mask for l in lig_ds])
-            merged = mc.merge_containers(conts, heavy_g, 2.0, num_out)
-            conf = Conf(position=merged.position.reshape(-1, 3),
-                        orientation=merged.orientation.reshape(-1, 4),
-                        torsions=merged.torsions.reshape(-1, tp))
-            out_lig = torch.arange(g, device=dev).repeat_interleave(num_out)
+        def draw_chunk(_k):
+            return [(mc.draw_mutation(gen, ntors_all, rigid_all,
+                                      device="cpu"),
+                     torch.rand(lanes, generator=gen, dtype=torch.float32))
+                    for _ in range(chunk)]
 
-            # refine_structure stages (main.cpp:144-158) on the exact
-            # energy or the CNN objective, the saved poses only (an empty
-            # slot's result is never read)
-            sel = torch.nonzero(merged.energy.reshape(-1) < MAX_FL)[:, 0]
-            if len(sel):
-                lig_v = lane_ligands(lig_ds, out_lig[sel])
-                conf_v = self._stages(efn, lig_v, rec_d, box, minpar, cap,
-                                      Conf(*[x[sel] for x in conf]),
-                                      cnn_obj if cnn_refine else None)
-                conf = Conf(*[x.index_copy(0, sel, y)
-                              for x, y in zip(conf, conf_v)])
-            lig_out = lane_ligands(lig_ds, out_lig)
-            inter, intra = exact_split(efn, lig_out, rec_d, conf, box, 1e3,
-                                       cap)
-        return self._assemble(rec, ligs, conf, inter.cpu().numpy(),
-                              intra.cpu().numpy(), merged.energy, n, m, p,
-                              max_layers, num_out)
+        draws = _SharedDraws(draw_chunk, dp)
+
+        def run_shard(i: int):
+            sdev = devices[i]
+            l0, l1 = i * gps * e, (i + 1) * gps * e
+            sub = ligs[i * gps:(i + 1) * gps]
+            rec_d = pad_receptor(pruned.coords, pruned.types, pruned.charges,
+                                 _round_up(len(pruned.types), 128),
+                                 device=sdev)
+            box = Box(lo=torch.as_tensor(lo, device=sdev),
+                      hi=torch.as_tensor(hi, device=sdev))
+            lig_ds, lane_lig, lig_l = lane_data(sdev, sub)
+            ar = torch.arange(6 + tp, device=sdev)
+            dof_mask = torch.stack([
+                (ar < 6 + l.num_torsions)
+                & (ar >= (0 if l.has_rigid_dof else 6)) for l in sub])[
+                    lane_lig]
+            ntors = ntors_all[l0:l1].to(sdev)
+            has_rigid = rigid_all[l0:l1].to(sdev)
+            cnn_obj = (self._build_cnn_objective(rec, box, max_layers)
+                       if mode in _CNN_MODES else None)
+            # the search grids of every ligand type in the batch, so each
+            # shard searches the grids of the unsharded run
+            grids = (self._populate_cache(ligs, rec_d, lo, hi)
+                     if s.search_grid and not cnn_search else None)
+            fns = self._energy_fns_for(efn, lig_l, rec_d, box, grids,
+                                       max_layers, cnn_obj=cnn_obj,
+                                       cnn_metro=cnn_obj is not None,
+                                       cnn_search=cnn_search)
+            with torch.no_grad():
+                c = _carry_slice(carry, l0, l1, sdev)
+                for k in range(n_chunks):
+                    dr = [(mc.MutationDraws(*[x[l0:l1].to(sdev)
+                                              for x in md]),
+                           u[l0:l1].to(sdev)) for md, u in draws.get(k)]
+                    c = mc.mc_chunk(c, None, chunk, lig_l, fns, mcpar,
+                                    max_layers, dof_mask, ntors, has_rigid,
+                                    draws=dr)
+                    if self.progress is not None and i == 0:
+                        self.progress(
+                            f"MC {min((k + 1) * chunk, num_steps)}/"
+                            f"{num_steps} steps ({g} ligand(s) x {e} "
+                            "chains)")
+
+                # merge: per-ligand top num_out over all chains (min_rmsd 2)
+                conts = mc.PoseContainer(*[x.reshape((gps, e) + x.shape[1:])
+                                           for x in c.cont])
+                heavy_g = torch.stack([l.heavy_mask for l in lig_ds])
+                merged = mc.merge_containers(conts, heavy_g, 2.0, num_out)
+                conf = Conf(position=merged.position.reshape(-1, 3),
+                            orientation=merged.orientation.reshape(-1, 4),
+                            torsions=merged.torsions.reshape(-1, tp))
+                out_lig = torch.arange(gps, device=sdev).repeat_interleave(
+                    num_out)
+
+                # refine_structure stages (main.cpp:144-158) on the exact
+                # energy or the CNN objective, the saved poses only (an
+                # empty slot's result is never read)
+                sel = torch.nonzero(merged.energy.reshape(-1) < MAX_FL)[:, 0]
+                if len(sel):
+                    lig_v = lane_ligands(lig_ds, out_lig[sel])
+                    conf_v = self._stages(efn, lig_v, rec_d, box, minpar,
+                                          cap, Conf(*[x[sel] for x in conf]),
+                                          cnn_obj if cnn_refine else None)
+                    conf = Conf(*[x.index_copy(0, sel, y)
+                                  for x, y in zip(conf, conf_v)])
+                lig_out = lane_ligands(lig_ds, out_lig)
+                inter, intra = exact_split(efn, lig_out, rec_d, conf, box,
+                                           1e3, cap)
+            return conf, inter.cpu().numpy(), intra.cpu().numpy(), \
+                merged.energy.cpu()
+
+        parts = _run_shards(devices, run_shard)
+        conf = Conf(*[torch.cat([x[0][j].to(dev) for x in parts])
+                      for j in range(3)])
+        with torch.no_grad():
+            return self._assemble(
+                rec, ligs, conf, np.concatenate([x[1] for x in parts]),
+                np.concatenate([x[2] for x in parts]),
+                torch.cat([x[3] for x in parts]), n, m, p, max_layers,
+                num_out)
 
     def _stages(self, efn: EnergyFn, lig_v: LigandData, rec_d: ReceptorData,
                 box: Box, minpar: MinimizeParams, cap, conf: Conf,

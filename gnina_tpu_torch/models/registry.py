@@ -8,8 +8,11 @@ place from the repository's one copy, gnina_tpu/data/models/, or from a
 `.pt` path, --cnn_model) is converted by models/torchscript_import.py into
 CACHE_DIR, keyed by the file's contents, and runs through the same
 SpecModule.  Every built-in name has its converted file in the repository;
-a name without one raises (the JAX registry's conversion of a name from a
-directory of TorchScript sources is not ported).
+a built-in name missing from `models_dir` is converted, as the JAX
+registry's _convert does (gnina_tpu/models/registry.py:126-139), from its
+TorchScript source `$GNINA_TPU_TORCH_MODELS/<file>.pt` (the reference's
+gninasrc/lib/models file name, MODEL_NAMES) into CACHE_DIR, once; without
+a source it raises FileNotFoundError naming the variable.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ from gnina_tpu_torch.models.typer import (ChannelTyper, DEFAULT_LIGMAP,
 MODELS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "gnina_tpu", "data", "models")
-# conversions of user checkpoints (--cnn_model), inside the package's
-# build directory
+# conversions of user checkpoints (--cnn_model) and of built-in names from
+# their TorchScript sources, inside the package's build directory
 CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build",
     "models")
@@ -142,6 +145,44 @@ def model_from_spec(name: str, spec: dict, params: Dict[str, np.ndarray],
 
 
 _MODEL_CACHE: dict = {}
+# the directory of the reference's TorchScript model files (gninasrc/lib/
+# models), read when a built-in name has no converted copy
+SOURCE_ENV = "GNINA_TPU_TORCH_MODELS"
+
+
+def _convert_into_cache(pt_path: str, tag: str):
+    """Convert the checkpoint `pt_path` into CACHE_DIR as `tag` unless it is
+    there: (spec path, npz path).  The files are written beside the cache
+    and moved in, so concurrent processes never read a half-written one."""
+    spec_path = os.path.join(CACHE_DIR, f"{tag}.spec.json")
+    npz_path = os.path.join(CACHE_DIR, f"{tag}.npz")
+    if not (os.path.exists(spec_path) and os.path.exists(npz_path)):
+        os.makedirs(CACHE_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=CACHE_DIR) as tmp:
+            convert_and_save(pt_path, tmp, tag)
+            os.replace(os.path.join(tmp, f"{tag}.npz"), npz_path)
+            os.replace(os.path.join(tmp, f"{tag}.spec.json"), spec_path)
+    return spec_path, npz_path
+
+
+def _convert(name: str):
+    """A built-in name converted from $GNINA_TPU_TORCH_MODELS/<file>.pt into
+    CACHE_DIR (the JAX registry's _convert): (spec path, npz path)."""
+    fname = MODEL_NAMES.get(name)
+    if fname is None:
+        raise KeyError(f"unknown CNN model {name!r}")
+    cached = (os.path.join(CACHE_DIR, f"{name}.spec.json"),
+              os.path.join(CACHE_DIR, f"{name}.npz"))
+    if all(os.path.exists(x) for x in cached):
+        return cached
+    src_dir = os.environ.get(SOURCE_ENV, "")
+    src = os.path.join(src_dir, fname + ".pt")
+    if not src_dir or not os.path.exists(src):
+        raise FileNotFoundError(
+            f"CNN model {name!r}: no converted copy found and no TorchScript "
+            f"source {fname}.pt (set {SOURCE_ENV} to the directory of the "
+            f"reference's model files)")
+    return _convert_into_cache(src, name)
 
 
 def load_model_from_file(path: str, device=None) -> CNNModel:
@@ -153,17 +194,7 @@ def load_model_from_file(path: str, device=None) -> CNNModel:
         tag = "file_" + hashlib.sha1(f.read()).hexdigest()[:16]
     key = (tag, CACHE_DIR, str(device))
     if key not in _MODEL_CACHE:
-        spec_path = os.path.join(CACHE_DIR, f"{tag}.spec.json")
-        npz_path = os.path.join(CACHE_DIR, f"{tag}.npz")
-        if not (os.path.exists(spec_path) and os.path.exists(npz_path)):
-            # convert beside the cache and move in, so that concurrent
-            # processes never read a half-written file
-            os.makedirs(CACHE_DIR, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=CACHE_DIR) as tmp:
-                convert_and_save(path, tmp, tag)
-                os.replace(os.path.join(tmp, f"{tag}.npz"), npz_path)
-                os.replace(os.path.join(tmp, f"{tag}.spec.json"), spec_path)
-        spec, params = load_spec(spec_path, npz_path)
+        spec, params = load_spec(*_convert_into_cache(path, tag))
         _MODEL_CACHE[key] = model_from_spec(tag, spec, params, device=device)
     return _MODEL_CACHE[key]
 
@@ -171,8 +202,10 @@ def load_model_from_file(path: str, device=None) -> CNNModel:
 def load_model(name: str, device=None,
                models_dir: Optional[str] = None) -> CNNModel:
     """The converted model `name` on `device` (None: the card), from
-    `models_dir` (None: the repository's gnina_tpu/data/models); a path to
-    an existing `.pt` file is a user's checkpoint (load_model_from_file)."""
+    `models_dir` (None: the repository's gnina_tpu/data/models), else, for
+    a built-in name, converted from its TorchScript source (_convert); a
+    path to an existing `.pt` file is a user's checkpoint
+    (load_model_from_file)."""
     if name.endswith(".pt") and os.path.exists(name):
         return load_model_from_file(name, device)
     device = resolve_device(device)
@@ -183,11 +216,11 @@ def load_model(name: str, device=None,
         spec_path = os.path.join(models_dir, f"{name}.spec.json")
         npz_path = os.path.join(models_dir, f"{name}.npz")
         if not (os.path.exists(spec_path) and os.path.exists(npz_path)):
-            known = "" if name in MODEL_NAMES else " (not a built-in name)"
-            raise FileNotFoundError(
-                f"CNN model {name!r}{known}: no converted {name}.spec.json + "
-                f"{name}.npz under {models_dir}; converting a name from its "
-                f"TorchScript source is not ported (a .pt path converts)")
+            if name not in MODEL_NAMES:
+                raise FileNotFoundError(
+                    f"CNN model {name!r} (not a built-in name): no converted "
+                    f"{name}.spec.json + {name}.npz under {models_dir}")
+            spec_path, npz_path = _convert(name)
         spec, params = load_spec(spec_path, npz_path)
         _MODEL_CACHE[key] = model_from_spec(name, spec, params, device=device)
     return _MODEL_CACHE[key]

@@ -114,14 +114,15 @@ def _bind_fused(so) -> None:
     so.gt_eval_fg.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
     so.gt_bfgs_minimize.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf,
                                     ci, vp, vp, vp, vp, vp, ci, ci, vp, vp]
+    # the MC windows: seed, then lane_offset (the global index of lane 0)
     so.gt_async_mc_window.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                      ctypes.c_uint32, ci, ci, ci, ci,
+                                      ctypes.c_uint32, ci, ci, ci, ci, ci,
                                       cf, ci, vp, vp, vp, vp, vp, vp, vp,
                                       vp, vp]
     so.gt_lockstep_mc_window.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                         ctypes.c_uint32, ci, ci, ci, cf,
-                                         ci, vp, vp, vp, vp, vp, vp, vp,
-                                         vp, ci, ci, vp, vp]
+                                         ctypes.c_uint32, ci, ci, ci, ci,
+                                         cf, ci, vp, vp, vp, vp, vp, vp,
+                                         vp, vp, ci, ci, vp, vp]
     for fn in (so.gt_eval_fg, so.gt_bfgs_minimize,
                so.gt_async_mc_window, so.gt_lockstep_mc_window):
         fn.restype = ci

@@ -43,6 +43,7 @@ import collections
 import ctypes
 import dataclasses
 import math
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,6 +61,7 @@ C0 = 1e-4
 N_DRAWS = 13      # uniforms per MC tick: 12 for mutate, 1 for Metropolis
 BLOCK_THREADS = 512   # threads per pose block in csrc/fused_dock.cu (NT)
 GROUP = 128           # lanes per done_frac group (the JAX kernel's block, LB)
+_COUNT_LOCK = threading.Lock()
 
 # Shared memory of a pose block (csrc/fused_dock.cu smem_bytes): two
 # mbarriers, the receptor, the pose state and one pair queue per warp.  The
@@ -134,6 +136,7 @@ class DockPack(NamedTuple):
     heavy_idx: np.ndarray   # (G, N) int64 heavy-subset -> full index, -1 pad
     num_layers: int         # LY: deepest tree layer over the pack
     max_heavy: int          # largest heavy-atom count over the ligands
+    pad_lig: int = -1       # the inert ligand row of pad lanes; -1: none
 
     @property
     def lanes(self) -> int:
@@ -149,16 +152,69 @@ class DockPack(NamedTuple):
         """The same ligands and receptor under another lane layout."""
         return self._replace(lane_lig=lane_lig.to(torch.int32).contiguous())
 
+    def to(self, device) -> "DockPack":
+        """Every tensor on `device`."""
+        return self._replace(**{
+            k: v.to(device) for k, v in self._asdict().items()
+            if isinstance(v, torch.Tensor)})
+
+    def real_lanes(self) -> "DockPack":
+        """The pack without its pad lanes (build_pack(shards > 1)): the
+        lanes of the unsharded layout, ligand-major."""
+        if self.pad_lig < 0:
+            return self
+        return self.with_lanes(self.lane_lig[self.lane_lig != self.pad_lig])
+
+    def shard(self, i: int, shards: int) -> "DockPack":
+        """Shard i of a pack laid out by build_pack(shards=shards): its
+        real lanes, over the rows of the ligands they dock (renumbered from
+        0), without the inert row.  Equal to build_pack of those ligands
+        alone, except that the dimensions (N, M, LY) stay the whole pack's,
+        so every shard runs what the unsharded pack runs for its lanes."""
+        block = self.lanes // shards
+        if block * shards != self.lanes:
+            raise ValueError(f"{self.lanes} lanes do not split into "
+                             f"{shards} shards")
+        ll = self.lane_lig[i * block:(i + 1) * block]
+        if self.pad_lig >= 0:
+            ll = ll[ll != self.pad_lig]
+        lo, hi = int(ll.min()), int(ll.max()) + 1
+        per_lig = ("lc", "ap", "node", "parent", "layer", "relax", "relo",
+                   "imask", "dofmask", "nheavy")
+        return self._replace(
+            lane_lig=(ll - lo).to(torch.int32).contiguous(),
+            heavy_idx=self.heavy_idx[lo:hi], pad_lig=-1,
+            **{k: getattr(self, k)[lo:hi].contiguous() for k in per_lig})
+
 
 def build_pack(ligs, rec_coords, rec_types, rec_mask, exhaustiveness: int,
-               table, m_pad: int = 0, device=None) -> DockPack:
+               table, m_pad: int = 0, device=None,
+               shards: int = 1) -> DockPack:
     """Build kernel arrays from host LigandStructs + receptor atoms.
 
     Lane layout: lane = ligand_index * exhaustiveness + chain.  m_pad:
     force at least this many tree nodes (so the packed torsion layout lines
-    up with an externally chosen Conf slot count)."""
+    up with an externally chosen Conf slot count).
+
+    shards > 1 lays the lanes out for an even split over a device mesh's
+    "dp" axis, as the JAX package's build_pack does
+    (gnina_tpu/ops/pallas_dock.py:127-204): the real lanes fall into
+    `shards` contiguous groups and each group carries its own trailing
+    pad up to a multiple of GROUP lanes (the JAX kernel's block), so the
+    lane axis splits into `shards` equal [real | pad] blocks.  Pad lanes
+    point at one inert ligand row (no atom, no degree of freedom) after the
+    real ones, `pad_lig`.  The kernels take partial groups of GROUP lanes,
+    so a shard runs its real lanes (DockPack.shard); the pad keeps the
+    layout JAX's, lane for lane.  Requires lanes % shards == 0 (the
+    engine pads the ligand list).  shards=1 is the layout above, no pad."""
     device = resolve_device(device)
     g = len(ligs)
+    lanes = g * exhaustiveness
+    if shards < 1 or lanes % shards:
+        raise ValueError(f"{lanes} lanes do not split into {shards} shards")
+    lps = lanes // shards
+    lps_pad = ((lps + GROUP - 1) // GROUP) * GROUP if shards > 1 else lps
+    gp = g + int(lps_pad > lps)     # an inert row after the real ligands
     heavy_lists = [np.where(~IS_HYDROGEN[l.types])[0] for l in ligs]
     n = max(1, max(len(h) for h in heavy_lists))
     n = ((n + 7) // 8) * 8
@@ -166,17 +222,17 @@ def build_pack(ligs, rec_coords, rec_types, rec_mask, exhaustiveness: int,
     ly = max(int(l.layer.max()) if l.num_nodes > 1 else 1 for l in ligs)
     d = 6 + (m - 1)
 
-    lc = np.zeros((g, n, 3), np.float32)
-    ap = np.zeros((g, n, 6), np.float32)
-    node = np.zeros((g, n), np.int32)
-    parent = np.zeros((g, m), np.int32)
-    layer = np.zeros((g, m), np.int32)
-    relax = np.zeros((g, m, 3), np.float32)
-    relo = np.zeros((g, m, 3), np.float32)
-    imask = np.zeros((g, n, n), np.float32)
-    dofmask = np.zeros((g, d), np.float32)
-    nheavy = np.zeros((g,), np.int32)
-    heavy_idx = np.full((g, n), -1, np.int64)
+    lc = np.zeros((gp, n, 3), np.float32)
+    ap = np.zeros((gp, n, 6), np.float32)
+    node = np.zeros((gp, n), np.int32)
+    parent = np.zeros((gp, m), np.int32)
+    layer = np.zeros((gp, m), np.int32)
+    relax = np.zeros((gp, m, 3), np.float32)
+    relo = np.zeros((gp, m, 3), np.float32)
+    imask = np.zeros((gp, n, n), np.float32)
+    dofmask = np.zeros((gp, d), np.float32)
+    nheavy = np.zeros((gp,), np.int32)
+    heavy_idx = np.full((gp, n), -1, np.int64)
 
     for gi, (lig, hidx) in enumerate(zip(ligs, heavy_lists)):
         nh = len(hidx)
@@ -216,6 +272,11 @@ def build_pack(ligs, rec_coords, rec_types, rec_mask, exhaustiveness: int,
     rec[:, 6] = table.xs_acceptor[rt]
     rec[:, 7] = np.asarray(rec_mask, np.float32)
     lane_lig = np.repeat(np.arange(g, dtype=np.int32), exhaustiveness)
+    if lps_pad > lps:
+        # per-shard trailing pad: (shards, lps) -> (shards, lps_pad) -> flat
+        lane_lig = np.pad(lane_lig.reshape(shards, lps),
+                          [(0, 0), (0, lps_pad - lps)],
+                          constant_values=g).reshape(-1)
 
     def t(a):
         return torch.as_tensor(a, device=device).contiguous()
@@ -224,7 +285,8 @@ def build_pack(ligs, rec_coords, rec_types, rec_mask, exhaustiveness: int,
                     layer=t(layer), relax=t(relax), relo=t(relo),
                     imask=t(imask), dofmask=t(dofmask), nheavy=t(nheavy),
                     rec=t(rec), lane_lig=t(lane_lig), heavy_idx=heavy_idx,
-                    num_layers=ly, max_heavy=int(nheavy.max()))
+                    num_layers=ly, max_heavy=int(nheavy.max()),
+                    pad_lig=g if gp > g else -1)
 
 
 class SmemPlan(NamedTuple):
@@ -896,13 +958,30 @@ def _mutate(rigid, tors, gr, u, dofm, amp):
     return rigid_new, tors_new
 
 
+def _window_uniforms(draws: int, lanes: int, generator, dev,
+                     lane_offset: int = 0, lane_total: Optional[int] = None):
+    """A window's uniforms (draws, N_DRAWS, lanes) for lanes lane_offset..
+    of a batch of lane_total lanes: drawn for the whole batch, sliced."""
+    total = lane_offset + lanes if lane_total is None else int(lane_total)
+    if lane_offset < 0 or lane_offset + lanes > total:
+        raise ValueError(f"lanes {lane_offset}..{lane_offset + lanes} "
+                         f"outside a batch of {total}")
+    u = torch.rand((draws, N_DRAWS, total), generator=generator,
+                   dtype=torch.float32, device=dev)
+    if total == lanes:
+        return u
+    return u[:, :, lane_offset:lane_offset + lanes].contiguous()
+
+
 def async_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
                           pack: DockPack, ecur, mc_steps: int,
                           tick_budget: int, maxiters: int,
                           num_trials: int = NUM_TRIALS,
                           ls_factor: float = 2.0, uniforms=None,
                           generator: Optional[torch.Generator] = None,
-                          trace: bool = False, warm_ls: bool = False):
+                          trace: bool = False, warm_ls: bool = False,
+                          lane_offset: int = 0,
+                          lane_total: Optional[int] = None):
     """K3 (and K6 with warm_ls), plain: a window of mc_steps Monte Carlo
     steps per lane (monte_carlo.cpp:99-148), each lane a state machine over
     (step, BFGS iteration, Armijo trial) advanced by one fused
@@ -912,7 +991,11 @@ def async_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
     mutation of the chain state (used by lanes that open a candidate this
     tick), uniforms[k, 12] the Metropolis test of lanes that complete one.
     uniforms (ticks, 13, L) is taken as given when supplied, else drawn
-    from `generator`.
+    from `generator`: for lanes 0..lane_total-1 of the whole batch
+    (lane_total defaults to lane_offset + L), of which this call's lanes
+    are lane_offset..lane_offset+L-1, so a shard draws what the unsharded
+    call draws for its lanes (the kernel keys its stream on lane_offset +
+    lane).
 
     warm_ls: a lane's Armijo exponent starts at max(wa - 1, 0) + trial
     instead of the trial count, where wa is the exponent of its last
@@ -936,8 +1019,8 @@ def async_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
     s_total = mc_steps * tick_budget
     log2f = float(np.log2(ls_factor))
     if uniforms is None:
-        uniforms = torch.rand((s_total, N_DRAWS, lanes), generator=generator,
-                              dtype=torch.float32, device=dev)
+        uniforms = _window_uniforms(s_total, lanes, generator, dev,
+                                    lane_offset, lane_total)
     if uniforms.shape[0] < s_total:
         raise ValueError("uniforms hold fewer ticks than the window budget")
     lig = pack.lane_lig.long()
@@ -1114,7 +1197,9 @@ def lockstep_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
                              ls_factor: float = 2.0, async_ls: bool = False,
                              uniforms=None,
                              generator: Optional[torch.Generator] = None,
-                             trace: bool = False, done_frac: float = 1.0):
+                             trace: bool = False, done_frac: float = 1.0,
+                             lane_offset: int = 0,
+                             lane_total: Optional[int] = None):
     """K5, plain: a step-indexed window of mc_steps Monte Carlo steps per
     lane (pallas_dock.py mc_body :1290): FK of the chain state, gyration,
     one-DOF mutation, one whole BFGS (in either line-search mode),
@@ -1122,7 +1207,9 @@ def lockstep_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
 
     Step k draws N_DRAWS uniforms per lane: uniforms[k, 0:12] feed the
     mutation, uniforms[k, 12] the Metropolis test.  uniforms (steps, 13, L)
-    is taken as given when supplied, else drawn from `generator`.
+    is taken as given when supplied, else drawn from `generator` for the
+    whole batch's lanes and sliced at lane_offset, as in
+    async_mc_window_plain.
 
     Returns the final chain state (rigid, tors), stats (L, 8) = [e, e,
     trial evals, iterations, accepted iterations, 0...], coords (L, N, 3),
@@ -1139,8 +1226,8 @@ def lockstep_mc_window_plain(terms: VinaTerms, rigid0, tors0, scal,
     lanes, m = tors0.shape
     dev = rigid0.device
     if uniforms is None:
-        uniforms = torch.rand((mc_steps, N_DRAWS, lanes), generator=generator,
-                              dtype=torch.float32, device=dev)
+        uniforms = _window_uniforms(mc_steps, lanes, generator, dev,
+                                    lane_offset, lane_total)
     if uniforms.shape[0] < mc_steps:
         raise ValueError("uniforms hold fewer steps than the window")
     lig = pack.lane_lig.long()
@@ -1388,16 +1475,20 @@ class _KernelWrapper:
             return self._launch(made, terms, rigid, tors, scal, pack, *args,
                                 **kw)
         finally:
-            n = made.n.value
-            if made.overrun is not None:
-                self.overrun = made.overrun
-            self.launches += n
-            self.calls += int(n > 0)
-            self.launches_by_lanes[int(rigid.shape[0])] += n
-            self.calls_by_lanes[int(rigid.shape[0])] += int(n > 0)
-            self.launches_by_mode[bool(kw.get(self.mode_flag, False))] += n
-            if kw.get("done_frac", 1.0) < 1.0:
-                self.launches_coupled += n
+            with _COUNT_LOCK:   # shards launch from threads of their own
+                self._count(made, rigid, kw)
+
+    def _count(self, made, rigid, kw):
+        n = made.n.value
+        if made.overrun is not None:
+            self.overrun = made.overrun
+        self.launches += n
+        self.calls += int(n > 0)
+        self.launches_by_lanes[int(rigid.shape[0])] += n
+        self.calls_by_lanes[int(rigid.shape[0])] += int(n > 0)
+        self.launches_by_mode[bool(kw.get(self.mode_flag, False))] += n
+        if kw.get("done_frac", 1.0) < 1.0:
+            self.launches_coupled += n
 
 
 def _common_checks(rigid, tors, scal, pack: DockPack):
@@ -1557,10 +1648,12 @@ def _check_mc_inputs(rigid, tors, scal, pack, ecur, uniforms, n_draws):
 
 def _launch_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
                tick_budget, maxiters, num_trials=NUM_TRIALS, ls_factor=2.0, *,
-               uniforms=None, seed=0, generator=None, warm_ls=False):
+               uniforms=None, seed=0, generator=None, warm_ls=False,
+               lane_offset=0, lane_total=None):
     from gnina_tpu_torch.ops import _cuda
 
-    del generator  # the kernel draws from its own Philox stream
+    # the kernel draws from its own Philox stream, keyed on the global lane
+    del generator, lane_total
     dev, n = _check_mc_inputs(rigid, tors, scal, pack, ecur, uniforms,
                               mc_steps * tick_budget)
     pa = _pack_args(pack, dev)
@@ -1569,8 +1662,8 @@ def _launch_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
     code = _cuda.lib().gt_async_mc_window(
         _addr(pa), _addr(ta), _ptr(rigid), _ptr(tors),
         _ptr(scal), _ptr(ecur), _ptr(uniforms),
-        ctypes.c_uint32(int(seed) & 0xFFFFFFFF), int(mc_steps),
-        int(tick_budget), int(maxiters), int(num_trials),
+        ctypes.c_uint32(int(seed) & 0xFFFFFFFF), int(lane_offset),
+        int(mc_steps), int(tick_budget), int(maxiters), int(num_trials),
         float(np.log2(ls_factor)), int(bool(warm_ls)),
         *[_ptr(x) for x in out], _stream(), ctypes.byref(made.n))
     _raise_on(code, "async_mc_window")
@@ -1580,10 +1673,12 @@ def _launch_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
 def _launch_lockstep_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
                         maxiters, num_trials=NUM_TRIALS, ls_factor=2.0, *,
                         async_ls=False, uniforms=None, seed=0,
-                        generator=None, done_frac=1.0):
+                        generator=None, done_frac=1.0, lane_offset=0,
+                        lane_total=None):
     from gnina_tpu_torch.ops import _cuda
 
-    del generator  # the kernel draws from its own Philox stream
+    # the kernel draws from its own Philox stream, keyed on the global lane
+    del generator, lane_total
     dev, n = _check_mc_inputs(rigid, tors, scal, pack, ecur, uniforms,
                               mc_steps)
     pa = _pack_args(pack, dev)
@@ -1595,8 +1690,9 @@ def _launch_lockstep_mc(made, terms, rigid, tors, scal, pack, ecur, mc_steps,
     code = _cuda.lib().gt_lockstep_mc_window(
         _addr(pa), _addr(ta), _ptr(rigid), _ptr(tors),
         _ptr(scal), _ptr(ecur), _ptr(uniforms),
-        ctypes.c_uint32(int(seed) & 0xFFFFFFFF), int(mc_steps),
-        int(maxiters), int(num_trials), float(np.log2(ls_factor)),
+        ctypes.c_uint32(int(seed) & 0xFFFFFFFF), int(lane_offset),
+        int(mc_steps), int(maxiters), int(num_trials),
+        float(np.log2(ls_factor)),
         int(bool(async_ls)), *[_ptr(x) for x in out], *_scratch_args(gs),
         _stream(), ctypes.byref(made.n))
     _raise_on(code, "lockstep_mc_window")
@@ -1616,22 +1712,24 @@ def _seeded(rigid, uniforms, seed, generator):
 
 def _mc_plain(terms, rigid, tors, scal, pack, ecur, mc_steps, tick_budget,
               maxiters, num_trials=NUM_TRIALS, ls_factor=2.0, *,
-              uniforms=None, seed=0, generator=None, warm_ls=False):
+              uniforms=None, seed=0, generator=None, warm_ls=False,
+              lane_offset=0, lane_total=None):
     return async_mc_window_plain(
         terms, rigid, tors, scal, pack, ecur, mc_steps, tick_budget,
         maxiters, num_trials, ls_factor, uniforms=uniforms,
-        generator=_seeded(rigid, uniforms, seed, generator), warm_ls=warm_ls)
+        generator=_seeded(rigid, uniforms, seed, generator), warm_ls=warm_ls,
+        lane_offset=lane_offset, lane_total=lane_total)
 
 
 def _lockstep_mc_plain(terms, rigid, tors, scal, pack, ecur, mc_steps,
                        maxiters, num_trials=NUM_TRIALS, ls_factor=2.0, *,
                        async_ls=False, uniforms=None, seed=0, generator=None,
-                       done_frac=1.0):
+                       done_frac=1.0, lane_offset=0, lane_total=None):
     return lockstep_mc_window_plain(
         terms, rigid, tors, scal, pack, ecur, mc_steps, maxiters, num_trials,
         ls_factor, async_ls, uniforms=uniforms,
         generator=_seeded(rigid, uniforms, seed, generator),
-        done_frac=done_frac)
+        done_frac=done_frac, lane_offset=lane_offset, lane_total=lane_total)
 
 
 # K1: eval_fg(terms, rigid, tors, scal, pack)
@@ -1643,13 +1741,16 @@ bfgs_minimize = _KernelWrapper("bfgs_minimize", bfgs_minimize_plain,
                                _launch_bfgs, mode_flag="async_ls")
 # K3: async_mc_window(terms, rigid, tors, scal, pack, ecur, mc_steps,
 #                     tick_budget, maxiters, num_trials, ls_factor,
-#                     uniforms=None, seed=0, generator=None, warm_ls=False);
-#     warm_ls is K6
+#                     uniforms=None, seed=0, generator=None, warm_ls=False,
+#                     lane_offset=0, lane_total=None);
+#     warm_ls is K6; lane_offset: the global index of lane 0 (the stream's
+#     key), lane_total: the whole batch's lanes (the plain draw)
 async_mc_window = _KernelWrapper("async_mc_window", _mc_plain, _launch_mc,
                                  mode_flag="warm_ls")
 # K5: lockstep_mc_window(terms, rigid, tors, scal, pack, ecur, mc_steps,
 #                        maxiters, num_trials, ls_factor, async_ls=False,
-#                        uniforms=None, seed=0, generator=None, done_frac=1.0)
+#                        uniforms=None, seed=0, generator=None, done_frac=1.0,
+#                        lane_offset=0, lane_total=None)
 lockstep_mc_window = _KernelWrapper("lockstep_mc_window", _lockstep_mc_plain,
                                     _launch_lockstep_mc,
                                     mode_flag="async_ls")
@@ -1669,7 +1770,8 @@ class FusedBfgs:
                  num_trials: int = NUM_TRIALS, ls_factor: float = 2.0,
                  tick_budget: int = 16, async_ls: bool = False,
                  async_mc: bool = True, warm_ls: bool = False,
-                 done_frac: float = 1.0):
+                 done_frac: float = 1.0, lane_offset: int = 0,
+                 lane_total: Optional[int] = None):
         terms = extract_vina_terms(sf)
         if terms is None:
             raise ValueError("scoring function outside the fused family")
@@ -1686,6 +1788,10 @@ class FusedBfgs:
         self.async_mc = bool(async_mc)
         self.warm_ls = bool(warm_ls)
         self.done_frac = float(done_frac)
+        # the MC windows' place in a sharded batch (lane_offset: the global
+        # index of this pack's lane 0; lane_total: the batch's lanes)
+        self.lane_offset = int(lane_offset)
+        self.lane_total = lane_total
         if not 0.0 < self.done_frac <= 1.0:
             raise ValueError(f"done_frac {done_frac} outside (0, 1]")
 
@@ -1709,9 +1815,11 @@ class FusedBfgs:
                 self.terms, rigid, tors, scal, self.pack, ecur,
                 self.mc_steps, self.tick_budget, self.maxiters,
                 self.num_trials, self.ls_factor, uniforms=uniforms,
-                seed=seed, warm_ls=self.warm_ls)
+                seed=seed, warm_ls=self.warm_ls,
+                lane_offset=self.lane_offset, lane_total=self.lane_total)
         return lockstep_mc_window(
             self.terms, rigid, tors, scal, self.pack, ecur, self.mc_steps,
             self.maxiters, self.num_trials, self.ls_factor,
             async_ls=self.async_ls, uniforms=uniforms, seed=seed,
-            done_frac=self.done_frac)
+            done_frac=self.done_frac, lane_offset=self.lane_offset,
+            lane_total=self.lane_total)

@@ -81,11 +81,14 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
                             fused_ref: fd.FusedBfgs, pack: fd.DockPack,
                             scal_hunt, scal_full, meta: LaneMeta,
                             params: mc.MCParams, tp: int,
-                            refine_subs: int = 1) -> mc.MCCarry:
+                            refine_subs: int = 1,
+                            seeds: Optional[Sequence[int]] = None
+                            ) -> mc.MCCarry:
     """num_steps MC steps per lane in windows of S = fused_mc.mc_steps.
 
     generator draws one Philox seed per window (the kernel's stream is
-    keyed on (seed, lane)).  The stream of an async window (K3) is
+    keyed on (seed, lane_offset + lane)), unless `seeds` gives the
+    windows' seeds (the shards of one batch share them).  The stream of an async window (K3) is
     completion-indexed with a completed flag per row; that of a lockstep
     window (K5) is step-indexed and every row is valid."""
     lanes = carry.e.shape[0]
@@ -102,8 +105,9 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
     sub = s_steps // refine_subs
     stream_lig = pack.lane_lig.repeat_interleave(s_steps)
 
-    for _ in range(num_steps // s_steps):
-        seed = int(torch.randint(0, 1 << 30, (1,), generator=generator))
+    for w in range(num_steps // s_steps):
+        seed = (int(seeds[w]) if seeds is not None else
+                int(torch.randint(0, 1 << 30, (1,), generator=generator)))
         (frigid, ftors, fstats, fcoords, srig, stor,
          sstat) = fused_mc.run_mc(carry.rigid, carry.tors, scal_hunt, seed,
                                   carry.e)

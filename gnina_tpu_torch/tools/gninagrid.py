@@ -13,14 +13,12 @@ layout and file naming follow the reference exactly:
 Counterpart of the JAX package's gnina_tpu/tools/gninagrid.py.  The grids
 are voxelized on the torch device that --device names (default: the card;
 --device cpu asks for the CPU); --gpu is accepted and ignored, as there.
-Two differences:
-- --random_rotation draws each ligand's quaternion with ops/quat.
-  random_orientation from a CPU torch.Generator seeded seed + i (the JAX
-  tool draws from jax.random.PRNGKey(seed + i), which torch cannot
-  replay), so the rotation does not depend on the device;
-- --separate with -g writes what the file name says: the user grids
-  followed by the receptor channels (the JAX tool's file holds the user
-  grids only).
+--random_rotation draws each ligand's quaternion as the JAX tool does,
+as the normal draw of shape (4,) under PRNGKey(seed + i), replayed by
+ops/jax_random (threefry2x32 is a counter hash), so the rotation does not
+depend on the device.  One difference: --separate with -g writes what the
+file name says, the user grids followed by the receptor channels (the JAX
+tool's file holds the user grids only).
 """
 
 from __future__ import annotations
@@ -34,10 +32,12 @@ import numpy as np
 import torch
 
 from gnina_tpu_torch.chem import ingest
+from gnina_tpu_torch.constants import EPSILON_FL
 from gnina_tpu_torch.device import device_from_flag
 from gnina_tpu_torch.models.typer import ChannelTyper, default_lig_typer, \
     default_rec_typer
-from gnina_tpu_torch.ops.quat import quaternion_to_matrix, random_orientation
+from gnina_tpu_torch.ops import jax_random
+from gnina_tpu_torch.ops.quat import quaternion_to_matrix
 from gnina_tpu_torch.ops.voxelize import slab_window_size, voxelize, \
     voxelize_windowed
 
@@ -79,10 +79,11 @@ def grid_channels(coords, channels, radii, center, nchan: int, npts: int,
 
 
 def random_rotation(seed: int) -> np.ndarray:
-    """The (3, 3) rotation of --random_rotation for seed `seed`: a uniform
-    quaternion drawn from a CPU generator seeded `seed`."""
-    gen = torch.Generator().manual_seed(int(seed))
-    q = random_orientation((), gen, device="cpu")
+    """The (3, 3) rotation of --random_rotation for seed `seed`: JAX's
+    random_orientation(PRNGKey(seed)), a normalised float32 normal draw of
+    shape (4,) (gnina_tpu/ops/quat.py:114-120)."""
+    g = jax_random.normal(jax_random.PRNGKey(seed), (4,))
+    q = g / torch.sqrt(torch.clamp(torch.sum(g * g), min=EPSILON_FL))
     return quaternion_to_matrix(q).numpy()
 
 

@@ -110,6 +110,31 @@ def compile_all(sources, verbose=False, prefix="ab"):
     return out
 
 
+class _NoLaneOffset:
+    """A build of a source older than the MC windows' lane_offset argument
+    (the ninth of gt_async_mc_window and gt_lockstep_mc_window): the calls
+    drop it, and it must be 0."""
+
+    MC = ("gt_async_mc_window", "gt_lockstep_mc_window")
+
+    def __init__(self, lib):
+        self._lib = lib
+        for name in self.MC:
+            fn = getattr(lib, name)
+            fn.argtypes = fn.argtypes[:8] + fn.argtypes[9:]
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self.MC:
+            return fn
+
+        def call(*args):
+            if args[8].value if hasattr(args[8], "value") else args[8]:
+                raise ValueError(f"{name}: this build has no lane_offset")
+            return fn(*(args[:8] + args[9:]))
+        return call
+
+
 def build(sources, verbose=False):
     """{source: (library, older argument block)} for builds of
     fused_dock.cu."""
@@ -118,7 +143,10 @@ def build(sources, verbose=False):
         lib = ctypes.CDLL(so)
         _cuda._bind_fused(lib)
         with open(split_spec(src)[0]) as f:
-            libs[src] = (lib, "rec_tile" not in f.read())
+            text = f.read()
+        if "lane_offset" not in text:
+            lib = _NoLaneOffset(lib)
+        libs[src] = (lib, "rec_tile" not in text)
     return libs
 
 

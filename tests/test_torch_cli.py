@@ -328,29 +328,43 @@ def test_errors_return_one(files, capsys):
     assert "ERROR: no ligands could be read" in capsys.readouterr().out
 
 
-# the general path's flags (--custom_scoring, --scoring dkoes*|ad4_scoring,
-# --user_grid[_lambda], --simple_ascent, --minimize_single_full) are ported:
-# test_torch_cli_general.py; the flex, covalent and --outputmin flags:
-# test_torch_cli_flex.py; the CNN-in-the-loop and CNN debug flags:
-# test_torch_cli_cnn.py; --cnn_model: test_torch_torchscript.py
-UNPORTED = [
-    (["--dist_nprocs", "2"], 14),
-]
-
-
-@pytest.mark.parametrize("flags,item", UNPORTED,
-                         ids=[" ".join(f) for f, _ in UNPORTED])
-def test_unported_flags_raise_naming_their_item(files, flags, item):
-    """Parsed, then refused before any work (no device is resolved, no file
-    but the receptor and ligand is looked at), naming the ROADMAP.md item."""
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tcli.main(["-r", files["rec"], "-l", files["one"], "-q"] + flags)
+# every flag of the JAX CLI is ported: the general path's flags
+# (test_torch_cli_general.py), the flex, covalent and --outputmin flags
+# (test_torch_cli_flex.py), the CNN-in-the-loop and CNN debug flags
+# (test_torch_cli_cnn.py), --cnn_model (test_torch_torchscript.py) and
+# --dist_nprocs (test_torch_multihost.py)
 
 
 def test_dist_nprocs_from_the_environment(files, monkeypatch):
+    """The JAX CLI's environment contract: GNINA_TPU_NPROCS, _PROCID and
+    _COORDINATOR reach the rendezvous (parallel/multihost.init) when no
+    flag is given; the flags override them."""
+    from gnina_tpu_torch.parallel import multihost
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def spy(coord, nprocs, pid, timeout=None):
+        seen.append((coord, nprocs, pid))
+        raise Stop
+
+    monkeypatch.setattr(multihost, "init", spy)
     monkeypatch.setenv("GNINA_TPU_NPROCS", "4")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tcli.main(["-r", files["rec"], "-l", files["one"], "-q"])
+    monkeypatch.setenv("GNINA_TPU_PROCID", "3")
+    monkeypatch.setenv("GNINA_TPU_COORDINATOR", "127.0.0.1:1")
+    base = ["-r", files["rec"], "-l", files["one"], "-q", "--device", "cpu"]
+    with pytest.raises(Stop):
+        tcli.main(base)
+    with pytest.raises(Stop):
+        tcli.main(base + ["--dist_nprocs", "2", "--dist_procid", "0",
+                          "--dist_coordinator", "127.0.0.1:2"])
+    assert seen == [("127.0.0.1:1", 4, 3), ("127.0.0.1:2", 2, 0)]
+    monkeypatch.setenv("GNINA_TPU_NPROCS", "1")
+    seen.clear()
+    assert tcli.main(base + ["--score_only", "--cnn_scoring", "none"]) == 0
+    assert seen == []
 
 
 def test_table_dumps_equal_jax(capsys):

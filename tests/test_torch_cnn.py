@@ -305,8 +305,12 @@ def test_registry_names_match_jax():
         tregistry.expand_model_names(["nothing_ensemble"])
 
 
-def test_registry_missing_model_raises(tmp_path):
-    with pytest.raises(FileNotFoundError, match="not ported"):
+def test_registry_missing_model_raises(tmp_path, monkeypatch):
+    """A built-in name with no converted copy and no TorchScript source
+    raises, naming the variable that gives the source directory."""
+    monkeypatch.delenv("GNINA_TPU_TORCH_MODELS", raising=False)
+    monkeypatch.setattr(tregistry, "CACHE_DIR", str(tmp_path / "cache"))
+    with pytest.raises(FileNotFoundError, match="GNINA_TPU_TORCH_MODELS"):
         tregistry.load_model("dense", device="cpu", models_dir=str(tmp_path))
 
 

@@ -7,8 +7,9 @@ of minout.sdf shifted by one vector so that the first one's heavy centre
 lies at the origin, and a synthetic receptor around it.  Grids are held to
 JAX's within 1e-4 (text files: 1e-4 plus the print's rounding); file names
 and header lines must be equal.  --random_rotation is held to JAX's
-make_grid under the rotation that the port drew (the JAX tool draws from a
-threefry key, which torch cannot replay).  --separate with -g is the one
+make_grid under the rotation that the port drew, which is JAX's own
+(ops/jax_random replays the threefry key; tests/test_torch_jax_random.py
+holds the tool's files to the JAX tool's).  --separate with -g is the one
 layout that differs: the JAX file lacks the receptor channels.
 """
 

@@ -40,7 +40,11 @@ _MODULES = ["gnina_tpu_torch", "gnina_tpu_torch.docking",
             "gnina_tpu_torch.tools.gninavis", "gnina_tpu_torch.tools.server",
             "gnina_tpu_torch.tools.server_client",
             "gnina_tpu_torch.tools.tognina",
-            "gnina_tpu_torch.tools.fromgnina"]
+            "gnina_tpu_torch.tools.fromgnina",
+            "gnina_tpu_torch.ops.jax_random",
+            "gnina_tpu_torch.parallel.mesh",
+            "gnina_tpu_torch.parallel.multihost",
+            "gnina_tpu_torch.models.train", "gnina_tpu_torch.native"]
 
 
 @pytest.mark.parametrize("module", _MODULES)

@@ -168,7 +168,11 @@ def test_bfgs_three_iterations_match_jax(system, which):
     line search (alpha is interpolated from float32 energies, so the steps
     differ in their last digits and the next iteration amplifies that):
     energy within rtol 1e-3 / atol 5e-3 (measured 3.5e-3), position within
-    5e-3 A."""
+    5e-3 A.  The amplification is float32's, not the port's:
+    scripts/torch_linesearch_trace.py shows the two packages' first trial
+    energies already 5.7e-6 apart (pair sums in another order), and JAX's
+    own 5-iteration minimize moving by 9.7e-3 kcal/mol when the receptor
+    moves by one float32 ulp, more than it parts from the port."""
     jc, tc = confs(system, 3)
     jpar = jbfgs.MinimizeParams(maxiters=3, type=which, fused_trials=False)
     tpar = tbfgs.MinimizeParams(maxiters=3, type=which)

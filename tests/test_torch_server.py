@@ -11,7 +11,16 @@ Two iterations a stage, not more: the accurate line search interpolates
 its step from float32 energies, so the two packages' steps part in the
 last digits and later iterations amplify it (at 5 iterations one of the
 three ligands ends 8.4e-3 kcal/mol from JAX's, the others within 2e-5;
-test_torch_minimize.py bounds the same drift at 3 iterations).
+test_torch_minimize.py bounds the same drift at 3 iterations).  That is
+float32 conditioning, not a fault of the port
+(scripts/torch_linesearch_trace.py, on that ligand): the first trial
+energies differ by 5.7e-6 relative (23.0241356 against 23.024004, pair
+sums in another order), the accepted steps by 1.0e-5 relative from the
+first iteration on; the fifth iteration's first trial lands on a
+repulsive wall (43.82 against 44.27 kcal/mol) and its cubic interpolation
+turns that into 0.021 kcal/mol.  JAX's own minimize of that ligand moves
+by 9.7e-3 kcal/mol, and the port's by 4.4e-3, when every receptor
+coordinate moves by one float32 ulp: more than the packages part.
 Also: a /minimize before any receptor gives 400, an unknown path 404, a
 ligand file that cannot be read 500, and the status counts follow.
 """

@@ -175,3 +175,44 @@ def test_cli_cnn_model_score_only_equals_jax(toy_pt, tmp_path, monkeypatch):
                        atol=1e-4)
     assert all(0.0 < v < 1.0 for k, v in t if k == "CNNscore")
     assert len(list((tmp_path / "tcache").iterdir())) == 2
+
+
+def test_registry_converts_a_built_in_name_from_its_source(tmp_path,
+                                                           monkeypatch):
+    """A built-in name without a converted copy is converted from
+    $GNINA_TPU_TORCH_MODELS/<file>.pt into the cache, as the JAX
+    registry's _convert does: the same spec and parameters as JAX's files;
+    the cached copy serves later loads without the source."""
+    src = tmp_path / "src"
+    src.mkdir()
+    save_toy(src / "dense_1.3.pt", seed=5)
+    monkeypatch.setenv("GNINA_TPU_TORCH_MODELS", str(src))
+    monkeypatch.setattr(tregistry, "CACHE_DIR", str(tmp_path / "cache"))
+    monkeypatch.setattr(tregistry, "_MODEL_CACHE", {})
+    monkeypatch.setattr(jregistry, "_MODELS_DIR_CANDIDATES", [str(src)])
+    monkeypatch.setattr(jregistry, "_CACHE_DIR", str(tmp_path / "jcache"))
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    model = tregistry.load_model("dense_1_3", device="cpu",
+                                 models_dir=str(empty))
+    jspec_path = jregistry._convert("dense_1_3")
+    with open(jspec_path) as f:
+        jspec = json.load(f)
+    with open(tmp_path / "cache" / "dense_1_3.spec.json") as f:
+        assert json.load(f) == jspec
+    jparams = np.load(jspec_path.replace(".spec.json", ".npz"))
+    tparams = model.module.params()
+    assert set(tparams) == set(jparams.files)
+    for k in jparams.files:
+        np.testing.assert_array_equal(tparams[k].numpy(), jparams[k])
+    assert model.grid_points == 13
+    (src / "dense_1.3.pt").unlink()
+    monkeypatch.setattr(tregistry, "_MODEL_CACHE", {})
+    again = tregistry.load_model("dense_1_3", device="cpu",
+                                 models_dir=str(empty))
+    for k in jparams.files:
+        np.testing.assert_array_equal(again.module.params()[k].numpy(),
+                                      jparams[k])
+    with pytest.raises(FileNotFoundError, match="GNINA_TPU_TORCH_MODELS"):
+        tregistry.load_model("dense_1_3_1", device="cpu",
+                             models_dir=str(empty))
