@@ -11,7 +11,8 @@ gradient layout over K1, K8 the done_frac group stop of K2/K4/K5, and the
 rate probes K9 probe_pairs, K10 probe_gather_loop, K11 probe_mxu) against
 its plain PyTorch version at the main path's shapes (K1 and one K3 window
 also on a receptor above the shared-memory budget, which the kernels
-stream through tiles: phase [4f]), and docks 16 copies
+stream through tiles: phase [4f]; K3's Philox stream against torch.rand
+uniforms by the window's statistics: phase [4g]), and docks 16 copies
 of the minout.sdf ligand x exhaustiveness 8 (128 chains) through
 DockingEngine.dock_batch on the card
 under each search setting that selects one of them: the default in-kernel
@@ -159,6 +160,41 @@ def close(a, b, rtol, atol):
     """|a - b| <= atol + rtol |b| elementwise (numpy's rule)."""
     a, b = a.double(), b.double()
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def stream_stats(out):
+    """Per lane of a K3 window: its accept rate (accepted over completed
+    steps), completed steps and mean candidate energy over the completed
+    rows, as float64 numpy arrays."""
+    st = out[6].double()
+    flags, acc = st[..., 2], st[..., 1]
+    done = flags.sum(1).clamp(min=1.0)
+    e = (st[..., 0] * flags).sum(1) / done
+    return {"accept rate": (acc.sum(1) / done).cpu().numpy(),
+            "completed steps": flags.sum(1).cpu().numpy(),
+            "mean candidate energy": e.cpu().numpy()}
+
+
+def mutation_shares(rigid0, tors0, out, trace):
+    """Shares of position, orientation and torsion mutations over a plain
+    K3 window's completed rows: each row's mutated start against the chain
+    head it was drawn from (the last accepted row before it, else the
+    start)."""
+    import torch
+
+    srig, stor, sstat = out[4], out[5], out[6]
+    hr, ht = rigid0.clone(), tors0.clone()
+    n = torch.zeros(3, dtype=torch.float64, device=srig.device)
+    for j in range(srig.shape[1]):
+        done = sstat[:, j, 2] > 0.5
+        sr, stt = trace["start_rigid"][:, j], trace["start_tors"][:, j]
+        n[0] += (done & (sr[:, :3] != hr[:, :3]).any(1)).sum()
+        n[1] += (done & (sr[:, 3:7] != hr[:, 3:7]).any(1)).sum()
+        n[2] += (done & (stt != ht).any(1)).sum()
+        a = done & (sstat[:, j, 1] > 0.5)
+        hr = torch.where(a[:, None], srig[:, j], hr)
+        ht = torch.where(a[:, None], stor[:, j], ht)
+    return (n / n.sum().clamp(min=1.0)).cpu().numpy()
 
 
 def timed(fn, reps):
@@ -3042,6 +3078,44 @@ def main():
           f"window S=128 budget 16 on Philox: {int(done.sum())} steps "
           f"completed of {128 * lanes}, {int(acc.sum())} accepted, "
           f"{int(full[2][:, 2].sum())} evaluations", flush=True)
+
+    # ---- 4g. K3's Philox stream against torch.rand ------------------------
+    # The same window from the same starts on torch.rand uniforms (the
+    # plain versions' generator): the per-lane accept rate, completed steps
+    # and mean candidate energy must agree with the Philox window's within
+    # 4 standard errors of the difference of the two lane means (lanes are
+    # independent chains).  The plain version on the torch.rand uniforms
+    # gives the shares of mutation kinds, which follow from the `which`
+    # draw alone (1/(T+2) position, 1/(T+2) orientation, T/(T+2) torsion
+    # for T torsions).
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed + 2)
+    uni = torch.rand((128 * 16, fd.N_DRAWS, lanes), generator=g, device=dev)
+    t0 = time.perf_counter()
+    rand = fd.async_mc_window(terms, r, t, scal_h, pack, ecur, 128, 16, 14,
+                              uniforms=uni)
+    plain = fd.async_mc_window_plain(terms, r, t, scal_h, pack, ecur, 128,
+                                     16, 14, uniforms=uni, trace=True)
+    torch.cuda.synchronize()
+    shares = mutation_shares(r, t, plain, plain[-1])
+    sides = [stream_stats(full), stream_stats(rand), stream_stats(plain)]
+    parts = []
+    for key in sides[0]:
+        (a, b, c) = (x[key] for x in sides)
+        se = lambda v: v.std(ddof=1) / np.sqrt(len(v))
+        z = (a.mean() - b.mean()) / max(np.hypot(se(a), se(b)), 1e-12)
+        parts.append(f"{key} {a.mean():.4f} +- {se(a):.4f} (Philox) vs "
+                     f"{b.mean():.4f} +- {se(b):.4f} (torch.rand; plain "
+                     f"{c.mean():.4f}), z {z:+.2f}")
+        check(abs(z) <= 4.0, f"K3 Philox stream against torch.rand: {key} "
+              f"{a.mean()} vs {b.mean()}, {z:+.2f} standard errors")
+    tt = lig.num_torsions
+    print(f"[4g] K3 stream, S=128 budget 16 maxiters 14, {lanes} lanes from "
+          f"the same starts: " + "; ".join(parts) + f"; mutation shares on "
+          f"torch.rand (plain trace) position {shares[0]:.3f}, orientation "
+          f"{shares[1]:.3f}, torsion {shares[2]:.3f} (expected "
+          f"{1 / (tt + 2):.3f}, {1 / (tt + 2):.3f}, {tt / (tt + 2):.3f}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 4b. K6 (K3 with warm_ls) -----------------------------------------
     # The flag off is the call above, bit for bit.  The flag on, at 2

@@ -5,7 +5,7 @@
 
 Docks the job of tests/test_torch_dock.py (two copies of the minout.sdf
 ligand in a 12 A box of the seed-0 synthetic receptor of an 18 A cube,
-SETTINGS: no CNN, num_mc_saved 9) on four routes, for each seed:
+SETTINGS: no CNN, num_mc_saved 9) on five routes, for each seed:
 
   port          gnina_tpu_torch's DockingEngine.dock_batch on the CPU (the
                 kernels' plain versions, the fused route)
@@ -18,9 +18,12 @@ SETTINGS: no CNN, num_mc_saved 9) on four routes, for each seed:
                 nudges the position the same way and is accepted: no
                 search, and nothing of the route the JAX package takes on
                 a TPU
+  jax_fused_drawn  the same, with the kernel's TPU PRNG served by
+                scripts/jax_supplied_draws.py from a numpy Generator seeded
+                by the run's seed: JAX's fused route searching, on the CPU
 
 `--steps` and `--chains` set num_mc_steps and exhaustiveness (the test's
-64 and 4); the same job runs on all three routes and is written into the
+64 and 4); the same job runs on every route and is written into the
 JSON.  A seed's best is the mean over the two ligands of each ligand's top
 pose energy (kcal/mol), as the test takes it.  The JSON holds per route the
 per-seed bests, their mean, spread (max - min) and the wall of each run,
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import multiprocessing
 import os
@@ -50,9 +54,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-ROUTES = ("port", "port_general", "jax_off", "jax_fused")
+ROUTES = ("port", "port_general", "jax_off", "jax_fused", "jax_fused_drawn")
 GAPS = (("port", "jax_off"), ("port", "jax_fused"),
-        ("port_general", "jax_off"), ("port", "port_general"))
+        ("port_general", "jax_off"), ("port", "port_general"),
+        ("port", "jax_fused_drawn"), ("jax_fused_drawn", "jax_off"))
 LABELS = {
     "port": "the port's fused route (kernels' plain versions)",
     "port_general": "the port's general path (fused_search='off')",
@@ -60,6 +65,11 @@ LABELS = {
     "jax_fused": "the JAX package's fused route in Pallas interpret mode, "
                  "whose TPU PRNG draws only zeros on the CPU: no search, not "
                  "the route the JAX package takes on a TPU",
+    "jax_fused_drawn": "the JAX package's fused route in Pallas interpret "
+                       "mode, its TPU PRNG served uniforms from a numpy "
+                       "Generator seeded by the run's seed "
+                       "(scripts/jax_supplied_draws.py): JAX's fused route "
+                       "searching",
 }
 BOX = 12.0
 CUBE = 18.0
@@ -104,7 +114,15 @@ def dock_one(route: str, seed: int, steps: int, chains: int,
         lig = next(jingest.iter_ligands(fx.LIGAND_SDF))
         mode = "off" if route == "jax_off" else "on"
         eng = JEngine(JSettings(fused_search=mode, **settings))
-        res = eng.dock_batch(rec, [lig, lig], center, size, seed=seed)
+        draws = contextlib.nullcontext()
+        if route == "jax_fused_drawn":
+            sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+            import jax_supplied_draws
+
+            draws = jax_supplied_draws.supplied_draws(
+                np.random.default_rng(seed))
+        with draws:
+            res = eng.dock_batch(rec, [lig, lig], center, size, seed=seed)
     wall = time.perf_counter() - t0
     return {"best": float(np.mean([r[0].energy for r in res])),
             "wall_s": wall}

@@ -24,6 +24,7 @@ state at the three-iteration bound, rtol 1e-2 / atol 5e-2 and 2e-2 A.
 """
 
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -96,12 +97,18 @@ def port_sf(jsf):
 def system(tmp_path_factory):
     """The in-repo ligand in a small synthetic receptor (interpret-mode cost
     grows with the receptor), packed for both sides."""
+    return make_system(tmp_path_factory.mktemp("rec"))
+
+
+def make_system(rec_dir):
+    """The `system` fixture's value, its receptor file written into the
+    directory rec_dir."""
     jlig = next(jingest.iter_ligands(fx.LIGAND_SDF))
     tlig = convert.ligand_from_numpy(
         {f.name: getattr(jlig, f.name) for f in dataclasses.fields(jlig)
          if f.name not in ("mol", "other_pairs", "flex_meta")})
     center = fx.ligand_center(jlig)
-    path = tmp_path_factory.mktemp("rec") / "rec.pdb"
+    path = pathlib.Path(rec_dir) / "rec.pdb"
     path.write_text(fx.receptor_pdb_text(center, seed=4, cube=22.0))
     jrec = jingest.Receptor.from_file(str(path))
     pr = jrec.pruned(center, np.full(3, 6.0), margin=2.0)
@@ -122,7 +129,8 @@ def system(tmp_path_factory):
     rigid, tors = fx.packed_poses(rng, LANES, lo, hi, tlig, M_PAD, "cpu",
                                   "perturbed")
     return dict(jsf=jsf, tpack=tpack, jpack=jpack, lo=lo, hi=hi,
-                terms=fd.extract_vina_terms(tsf), rigid=rigid, tors=tors)
+                terms=fd.extract_vina_terms(tsf), rigid=rigid, tors=tors,
+                jlig=jlig, tsf=tsf)
 
 
 def jax_window(system, async_mc):
