@@ -39,7 +39,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from gnina_tpu_torch import __version__
+from gnina_tpu_torch import __version__, trace
 from gnina_tpu_torch.chem import flexinfo, ingest
 from gnina_tpu_torch.chem.tree_build import attach_flex, empty_ligand_struct
 from gnina_tpu_torch.device import device_from_flag
@@ -322,6 +322,19 @@ def _main(argv: Optional[List[str]], device) -> int:
         args, unknown = parser.parse_known_args(argv)
 
     log = Tee(args.log, args.quiet or args.verbosity <= 0)
+    try:
+        # spans and counters of this call (trace.py): on under a profiler,
+        # and for the summary table of --verbosity 2
+        with trace.command(args.verbosity >= 2) as call:
+            rc = _run(args, unknown, log, device)
+        if args.verbosity >= 2:
+            log.write(trace.summary(call))
+        return rc
+    finally:
+        log.close()
+
+
+def _run(args, unknown, log, device) -> int:
     if unknown:
         log.write(f"ERROR: unrecognized option(s): {' '.join(unknown)}\n")
         return 1
@@ -467,9 +480,11 @@ def _main(argv: Optional[List[str]], device) -> int:
         if args.cnn_center_x is not None:
             center = np.array([args.cnn_center_x, args.cnn_center_y,
                                args.cnn_center_z], np.float32)
-        cnn = CNNScorer(model_names=(args.cnn + args.cnn_model) or None,
-                        rotations=args.cnn_rotations, seed=args.seed,
-                        center=center, device=dev, verbose=args.cnn_verbose)
+        with trace.span("cnn.load"):
+            cnn = CNNScorer(model_names=(args.cnn + args.cnn_model) or None,
+                            rotations=args.cnn_rotations, seed=args.seed,
+                            center=center, device=dev,
+                            verbose=args.cnn_verbose)
 
     user_grid = None
     ug_box = None
@@ -493,7 +508,8 @@ def _main(argv: Optional[List[str]], device) -> int:
     if args.verbosity >= 2:
         # MC search progress (the reference's parallel_progress bar)
         engine.progress = lambda msg: log.write(msg + "\n")
-    rec = ingest.Receptor.from_file(args.receptor)
+    with trace.span("cli.ingest"):
+        rec = ingest.Receptor.from_file(args.receptor)
 
     # covalent docking context (reference: covinfo.cpp, molgetter.cpp:105+)
     cov_ctx = None
@@ -720,7 +736,6 @@ def _main(argv: Optional[List[str]], device) -> int:
             f.write("".join(out_flex_chunks))
 
     log.write(f"\nLoop time {time.time() - t_start:.2f}\n")
-    log.close()
     return 0
 
 
@@ -766,7 +781,8 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
         # bucket rounding mirrors dock_batch's shape rounding
         return (up(lig.num_atoms, 8), up(lig.num_nodes, 4))
 
-    all_ligs = list(ligands)
+    with trace.span("cli.ingest"):
+        all_ligs = list(ligands)
     if not all_ligs:
         log.write("ERROR: no ligands could be read\n")
         return 1
@@ -834,14 +850,11 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                   + ", ".join(f"{k}x{len(v)}" for k, v in buckets.items())
                   + "\n")
 
-    first_seen = set()
-
-    def dock_one(key, chunk):
+    def dock_one(chunk):
         box_size = np.asarray(size)
         if args.autobox_ligand and args.autobox_extend:
             span = max(l.max_span() for l in chunk) + 4
             box_size = np.maximum(box_size, span)
-        t_bucket = time.time()
         try:
             res_b = engine.dock_batch(rec, chunk, center, box_size,
                                       seed=args.seed, mesh=mesh)
@@ -861,10 +874,6 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                     log.write(f"ERROR processing ligand {lone.name}: "
                               f"{e1}\n")
                     res_b.append([])
-        if key not in first_seen and args.verbosity > 1:
-            log.write(f"Bucket {key}: first batch "
-                      f"{time.time() - t_bucket:.1f} s\n")
-        first_seen.add(key)
         for lig, res in zip(chunk, res_b):
             idx = order[id(lig)]
             results_by_idx[idx] = ("res", lig, res)
@@ -882,71 +891,74 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
     # a plain loop over the buckets: there is no compile to overlap
     for key, blist in buckets.items():
         for i in range(0, len(blist), batch_size):
-            dock_one(key, blist[i:i + batch_size])
+            chunk = blist[i:i + batch_size]
+            with trace.span("screen.batch", bucket=key, ligands=len(chunk)):
+                dock_one(chunk)
 
     if part_f is not None:
         part_f.close()
 
-    out_chunks = []
-    out_flex_chunks = []
-    atom_chunks = []
-    if dist and (args.atom_terms or args.out_flex):
-        log.write("WARNING: --atom_terms/--out_flex are per-process under "
-                  "--dist_nprocs; only this process's ligands are "
-                  "included\n")
-    indexed_chunks = []  # (global index, sdf text) for the part file
-    my_indices = sorted(results_by_idx) if dist else range(len(all_ligs))
-    for i in my_indices:
-        kind, a, b = results_by_idx[i]
-        if kind == "text":
-            log.write(f"\n## {a} (resumed)\n")
-            sdf_body, flex_body = b
-            out_chunks.append(sdf_body)
-            indexed_chunks.append((i, sdf_body))
-            if flex_body:
-                out_flex_chunks.append(flex_body)
-            continue
-        lig, results = a, b
-        log.write(f"\n## {lig.name}\n")
-        _write_pose_table(log, results)
-        if args.out or args.atom_terms:
-            text, tables = render_poses(lig, results)
-            if args.out:
-                out_chunks.append(text)
-                indexed_chunks.append((i, text))
-            if args.atom_terms and tables:
-                atom_chunks.extend(tables)
-        if args.out_flex and lig.flex_meta:
-            out_flex_chunks.append(write_flex_pdb(
-                lig, results,
-                rigid=rec.mol if args.full_flex_output else None))
-    if args.out and dist:
-        # each process writes its slice; process 0 stitches the input
-        # order back together after the barrier (parallel/multihost.py)
-        with open(multihost.part_path(args.out, pid), "w") as f:
-            for i, text in indexed_chunks:
-                f.write(f"#GNINA_TPU_IDX {i} {all_ligs[i].name}\n")
-                f.write(text)
-        multihost.barrier("screen-output")
-        if pid == 0:
-            n_merged = multihost.merge_part_outputs(args.out, nprocs)
-            log.write(f"Merged {n_merged} ligand(s) from {nprocs} "
-                      "process part files\n")
-    elif args.out:
-        with open(args.out, "w") as f:
-            f.write("".join(out_chunks))
-    if args.out:
-        if partial_path and os.path.exists(partial_path):
-            os.remove(partial_path)  # the final ordered output supersedes it
-    if args.atom_terms:
-        # resumed ligands' tables are not recomputed
-        with open(args.atom_terms, "w") as f:
-            f.write("".join(atom_chunks))
-    if args.out_flex:
-        with open(args.out_flex, "w") as f:
-            f.write("".join(out_flex_chunks))
+    with trace.span("cli.write"):
+        out_chunks = []
+        out_flex_chunks = []
+        atom_chunks = []
+        if dist and (args.atom_terms or args.out_flex):
+            log.write("WARNING: --atom_terms/--out_flex are per-process under "
+                      "--dist_nprocs; only this process's ligands are "
+                      "included\n")
+        indexed_chunks = []  # (global index, sdf text) for the part file
+        my_indices = sorted(results_by_idx) if dist else range(len(all_ligs))
+        for i in my_indices:
+            kind, a, b = results_by_idx[i]
+            if kind == "text":
+                log.write(f"\n## {a} (resumed)\n")
+                sdf_body, flex_body = b
+                out_chunks.append(sdf_body)
+                indexed_chunks.append((i, sdf_body))
+                if flex_body:
+                    out_flex_chunks.append(flex_body)
+                continue
+            lig, results = a, b
+            log.write(f"\n## {lig.name}\n")
+            _write_pose_table(log, results)
+            if args.out or args.atom_terms:
+                text, tables = render_poses(lig, results)
+                if args.out:
+                    out_chunks.append(text)
+                    indexed_chunks.append((i, text))
+                if args.atom_terms and tables:
+                    atom_chunks.extend(tables)
+            if args.out_flex and lig.flex_meta:
+                out_flex_chunks.append(write_flex_pdb(
+                    lig, results,
+                    rigid=rec.mol if args.full_flex_output else None))
+        if args.out and dist:
+            # each process writes its slice; process 0 stitches the input
+            # order back together after the barrier (parallel/multihost.py)
+            with open(multihost.part_path(args.out, pid), "w") as f:
+                for i, text in indexed_chunks:
+                    f.write(f"#GNINA_TPU_IDX {i} {all_ligs[i].name}\n")
+                    f.write(text)
+            multihost.barrier("screen-output")
+            if pid == 0:
+                n_merged = multihost.merge_part_outputs(args.out, nprocs)
+                log.write(f"Merged {n_merged} ligand(s) from {nprocs} "
+                          "process part files\n")
+        elif args.out:
+            with open(args.out, "w") as f:
+                f.write("".join(out_chunks))
+        if args.out:
+            if partial_path and os.path.exists(partial_path):
+                # the final ordered output supersedes it
+                os.remove(partial_path)
+        if args.atom_terms:
+            # resumed ligands' tables are not recomputed
+            with open(args.atom_terms, "w") as f:
+                f.write("".join(atom_chunks))
+        if args.out_flex:
+            with open(args.out_flex, "w") as f:
+                f.write("".join(out_flex_chunks))
     log.write(f"\nLoop time {time.time() - t_start:.2f}\n")
-    log.close()
     return 0
 
 

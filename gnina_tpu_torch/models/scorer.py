@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gnina_tpu_torch import trace
 from gnina_tpu_torch.chem.ingest import Receptor
 from gnina_tpu_torch.chem.tree_build import LigandStruct
 from gnina_tpu_torch.device import resolve_device
@@ -94,6 +95,7 @@ class CNNScorer:
             self.models: List[CNNModel] = list(models)
         else:
             names = expand_model_names(list(model_names or []))
+            trace.count("cnn.loads", len(names))
             self.models = [load_model(n, device=self.device,
                                       models_dir=models_dir) for n in names]
         self.rotations = max(rotations, 1)
@@ -201,33 +203,36 @@ class CNNScorer:
         atom types are per-pose data, so a whole screen batch's rescore is
         one pass per chunk of MAX_POSE_BATCH poses.  Returns a list of
         (score, affinity, loss, variance) per item, numpy arrays."""
-        prep = self.prepare_multi(rec, items)
-        dev = self.device
-        rec_c, rec_t, rec_m = (torch.as_tensor(x, device=dev)
-                               for x in prep["rec"])
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(self.seed))
-        outs = []
-        bp = prep["bp"]
-        with torch.no_grad():
-            for c0 in range(0, prep["coords"].shape[0], bp):
-                sl = slice(c0, c0 + bp)
-                outs.append(self.ensemble_forward(
-                    rec_c, rec_t, rec_m,
-                    torch.as_tensor(prep["coords"][sl], device=dev),
-                    torch.as_tensor(prep["types"][sl], device=dev),
-                    torch.as_tensor(prep["mask"][sl], device=dev),
-                    torch.as_tensor(prep["centers"][sl], device=dev),
-                    prep["win"], gen))
-        score, affinity, loss, variance = (
-            torch.cat([o[i] for o in outs]).cpu().numpy() for i in range(4))
-        out = []
-        off = 0
-        for bi in prep["sizes"]:
-            out.append((score[off:off + bi], affinity[off:off + bi],
-                        loss[off:off + bi], variance[off:off + bi]))
-            off += bi
-        return out
+        with trace.span("cnn.score", device=self.device):
+            prep = self.prepare_multi(rec, items)
+            trace.count("cnn.poses", prep["b"])
+            dev = self.device
+            rec_c, rec_t, rec_m = (torch.as_tensor(x, device=dev)
+                                   for x in prep["rec"])
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(self.seed))
+            outs = []
+            bp = prep["bp"]
+            with torch.no_grad():
+                for c0 in range(0, prep["coords"].shape[0], bp):
+                    sl = slice(c0, c0 + bp)
+                    outs.append(self.ensemble_forward(
+                        rec_c, rec_t, rec_m,
+                        torch.as_tensor(prep["coords"][sl], device=dev),
+                        torch.as_tensor(prep["types"][sl], device=dev),
+                        torch.as_tensor(prep["mask"][sl], device=dev),
+                        torch.as_tensor(prep["centers"][sl], device=dev),
+                        prep["win"], gen))
+            score, affinity, loss, variance = (
+                torch.cat([o[i] for o in outs]).cpu().numpy()
+                for i in range(4))
+            out = []
+            off = 0
+            for bi in prep["sizes"]:
+                out.append((score[off:off + bi], affinity[off:off + bi],
+                            loss[off:off + bi], variance[off:off + bi]))
+                off += bi
+            return out
 
     def score_pose(self, rec: Receptor, lig: LigandStruct, coords: np.ndarray
                    ) -> Tuple[float, float, float]:
@@ -380,29 +385,30 @@ class CNNScorer:
         x-sorted window (when win) plus the ligand; else (B, 3, 3)
         matrices that turn each complex about its grid center, everything
         through the plain voxelizer."""
-        if rotation is None and win:
-            return (self.receptor_grids(m0, rec_coords, rec_types, rec_mask,
-                                        centers, win)
-                    + self.ligand_grids(m0, lig_coords_b, lig_types_b,
-                                        lig_mask_b, centers))
-        rec_chan, rec_radii = _rec_typing(m0, rec_types)
-        lig_chan, lig_radii = _lig_typing(m0, lig_types_b)
-        kw = _grid_kw(m0)
-        b = centers.shape[0]
-        rec_xyz = rec_coords[None].expand(b, -1, -1)
-        lig_xyz = lig_coords_b
-        if rotation is not None:
-            c = centers[:, None]
-            rt = rotation.transpose(1, 2)
-            rec_xyz = torch.bmm(rec_xyz - c, rt) + c
-            lig_xyz = torch.bmm(lig_xyz - c, rt) + c
-        k = rec_coords.shape[0]
-        return voxelize_batch(
-            torch.cat([rec_xyz, lig_xyz], 1),
-            torch.cat([rec_chan[None].expand(b, k), lig_chan], 1),
-            torch.cat([rec_radii[None].expand(b, k), lig_radii], 1),
-            torch.cat([rec_mask[None].expand(b, k), lig_mask_b], 1),
-            centers, **kw)
+        with trace.span("cnn.voxelize", device=centers.device):
+            if rotation is None and win:
+                return (self.receptor_grids(m0, rec_coords, rec_types,
+                                            rec_mask, centers, win)
+                        + self.ligand_grids(m0, lig_coords_b, lig_types_b,
+                                            lig_mask_b, centers))
+            rec_chan, rec_radii = _rec_typing(m0, rec_types)
+            lig_chan, lig_radii = _lig_typing(m0, lig_types_b)
+            kw = _grid_kw(m0)
+            b = centers.shape[0]
+            rec_xyz = rec_coords[None].expand(b, -1, -1)
+            lig_xyz = lig_coords_b
+            if rotation is not None:
+                c = centers[:, None]
+                rt = rotation.transpose(1, 2)
+                rec_xyz = torch.bmm(rec_xyz - c, rt) + c
+                lig_xyz = torch.bmm(lig_xyz - c, rt) + c
+            k = rec_coords.shape[0]
+            return voxelize_batch(
+                torch.cat([rec_xyz, lig_xyz], 1),
+                torch.cat([rec_chan[None].expand(b, k), lig_chan], 1),
+                torch.cat([rec_radii[None].expand(b, k), lig_radii], 1),
+                torch.cat([rec_mask[None].expand(b, k), lig_mask_b], 1),
+                centers, **kw)
 
     @staticmethod
     def receptor_grids(m0: CNNModel, rec_coords, rec_types, rec_mask,
@@ -430,31 +436,33 @@ class CNNScorer:
         models x rotations.  Rotation 0 is the identity; the others draw
         one random orientation per pose from `generator`, which lives on
         the tensors' device."""
-        b = lig_coords_b.shape[0]
-        dev = centers.device
-        scores, affinities, losses = [], [], []
-        for model_ids in self._groups():
-            m0 = self.models[model_ids[0]]
-            for r in range(self.rotations):
-                rot = None
-                if r > 0:
-                    rot = quaternion_to_matrix(
-                        random_orientation((b,), generator, dev))
-                grids = self.voxelize_group(
-                    m0, rec_coords, rec_types, rec_mask, lig_coords_b,
-                    lig_types_b, lig_mask_b, centers, win, rot)
-                for mi in model_ids:
-                    m = self.models[mi]
-                    pose, aff, loss = _pose_from_outputs(m, m.module(grids))
-                    scores.append(pose)
-                    affinities.append(aff)
-                    losses.append(loss)
-        score = torch.mean(torch.stack(scores), dim=0)
-        affs = torch.stack(affinities)       # (M*R, B)
-        affinity = torch.mean(affs, dim=0)
-        loss = torch.mean(torch.stack(losses), dim=0)
-        if affs.shape[0] > 1:
-            variance = torch.mean((affs - affinity[None]) ** 2, dim=0)
-        else:
-            variance = torch.zeros_like(affinity)
-        return score, affinity, loss, variance
+        with trace.span("cnn.forward", device=centers.device):
+            b = lig_coords_b.shape[0]
+            dev = centers.device
+            scores, affinities, losses = [], [], []
+            for model_ids in self._groups():
+                m0 = self.models[model_ids[0]]
+                for r in range(self.rotations):
+                    rot = None
+                    if r > 0:
+                        rot = quaternion_to_matrix(
+                            random_orientation((b,), generator, dev))
+                    grids = self.voxelize_group(
+                        m0, rec_coords, rec_types, rec_mask, lig_coords_b,
+                        lig_types_b, lig_mask_b, centers, win, rot)
+                    for mi in model_ids:
+                        m = self.models[mi]
+                        pose, aff, loss = _pose_from_outputs(
+                            m, m.module(grids))
+                        scores.append(pose)
+                        affinities.append(aff)
+                        losses.append(loss)
+            score = torch.mean(torch.stack(scores), dim=0)
+            affs = torch.stack(affinities)       # (M*R, B)
+            affinity = torch.mean(affs, dim=0)
+            loss = torch.mean(torch.stack(losses), dim=0)
+            if affs.shape[0] > 1:
+                variance = torch.mean((affs - affinity[None]) ** 2, dim=0)
+            else:
+                variance = torch.zeros_like(affinity)
+            return score, affinity, loss, variance

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from gnina_tpu_torch import trace
 from gnina_tpu_torch.constants import MAX_FL
 from gnina_tpu_torch.ops import fused_dock as fd
 from gnina_tpu_torch.ops import mc
@@ -98,26 +99,48 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
     if refine_subs < 1 or s_steps % refine_subs:
         raise ValueError("refine_subs must divide the window length")
     dev = carry.e.device
-    m = fused_mc.m
-    big = torch.tensor(3e38, dtype=torch.float32, device=dev)
-    sidx = torch.arange(s_steps, device=dev)
-    lane_ix = torch.arange(lanes, device=dev)
-    sub = s_steps // refine_subs
-    stream_lig = pack.lane_lig.repeat_interleave(s_steps)
+    consts = (torch.tensor(3e38, dtype=torch.float32, device=dev),
+              torch.arange(s_steps, device=dev),
+              torch.arange(lanes, device=dev),
+              pack.lane_lig.repeat_interleave(s_steps))
 
     for w in range(num_steps // s_steps):
-        seed = (int(seeds[w]) if seeds is not None else
-                int(torch.randint(0, 1 << 30, (1,), generator=generator)))
+        with trace.span("mc.window", device=dev):
+            seed = (int(seeds[w]) if seeds is not None else
+                    int(torch.randint(0, 1 << 30, (1,), generator=generator)))
+            carry = _window(carry, seed, fused_mc, fused_ref, pack, scal_hunt,
+                            scal_full, meta, params, tp, refine_subs, consts)
+    return carry
+
+
+def _window(carry, seed, fused_mc, fused_ref, pack, scal_hunt, scal_full,
+            meta, params, tp, refine_subs, consts):
+    """One window of fused_mc_chunk_inkernel from the window's seed: K3
+    (or K5), the stream's FK and candidate selection, the refine_subs K2
+    refinements, the merge."""
+    big, sidx, lane_ix, stream_lig = consts
+    lanes, s_steps, m = carry.e.shape[0], fused_mc.mc_steps, fused_mc.m
+    sub = s_steps // refine_subs
+    with trace.span("mc.k3"):
         (frigid, ftors, fstats, fcoords, srig, stor,
          sstat) = fused_mc.run_mc(carry.rigid, carry.tors, scal_hunt, seed,
                                   carry.e)
+    trace.count("mc.windows")
+    trace.count("mc.steps_scheduled", s_steps * lanes)
+    if fused_mc.async_mc:
+        # stats row 4: the steps each lane completed in the window
+        trace.count_device("mc.steps_completed", fstats[:, 4])
+    else:
+        trace.count("mc.steps_completed", s_steps * lanes)
+
+    with trace.span("mc.fk"):
         if fused_mc.async_mc:
             validp = sstat[..., 2] > 0.5                      # (L, S)
         else:
             validp = torch.ones_like(sstat[..., 0], dtype=torch.bool)
         # never-completed rows are zeros (quat 0): neutralize before FK
         ident = torch.tensor([0, 0, 0, 1, 0, 0, 0, 0], dtype=torch.float32,
-                             device=dev)
+                             device=carry.e.device)
         crig = torch.where(validp[..., None], srig, ident)
         ccrd = fd.fk_packed(crig.reshape(-1, 8), stor.reshape(-1, m), pack,
                             lane_lig=stream_lig).reshape(
@@ -130,8 +153,9 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
         has_acc = torch.any(accept, dim=1)
         last_acc = torch.max(torch.where(accept, sidx, -1), dim=1).values
 
-        # full-v refinement of the best accepted candidate of EACH
-        # sub-window (refine_subs K2 launches)
+    # full-v refinement of the best accepted candidate of EACH sub-window
+    # (refine_subs K2 launches)
+    with trace.span("mc.refine"):
         refs = []
         for r in range(refine_subs):
             idx_r = torch.argmin(masked_e[:, r * sub:(r + 1) * sub], dim=1) \
@@ -142,6 +166,7 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
                 stor[lane_ix, idx_r].contiguous(), scal_full)
             refs.append((org, otr, rstats[:, 1], rcoords, valid_r))
 
+    with trace.span("mc.merge"):
         # the chain continues from the refined conf when the best candidate
         # is still the chain head; it lives in sub-window idx_best // sub
         move = has_acc & (last_acc == idx_best)
@@ -184,12 +209,11 @@ def fused_mc_chunk_inkernel(carry: mc.MCCarry, generator: torch.Generator,
         best_e = torch.minimum(carry.best_e, torch.min(masked_e, dim=1).values)
         best_e = torch.minimum(best_e, torch.min(
             torch.where(rvalid, re_col, big), dim=1).values)
-        carry = mc.MCCarry(rigid=rigid.contiguous(), tors=tors.contiguous(),
-                           e=e.contiguous(), best_e=best_e, cont=cont,
-                           coords=coords, pending_rigid=rigid,
-                           pending_tors=tors,
-                           pending_valid=torch.zeros_like(carry.pending_valid),
-                           pending_is_current=torch.zeros_like(
-                               carry.pending_is_current))
-    return carry
+        return mc.MCCarry(rigid=rigid.contiguous(), tors=tors.contiguous(),
+                          e=e.contiguous(), best_e=best_e, cont=cont,
+                          coords=coords, pending_rigid=rigid,
+                          pending_tors=tors,
+                          pending_valid=torch.zeros_like(carry.pending_valid),
+                          pending_is_current=torch.zeros_like(
+                              carry.pending_is_current))
 
