@@ -953,12 +953,13 @@ def phase_cli(S, scorer_names):
     with open(path("ligs.sdf"), "w") as f:
         f.write("".join(n + body for n in names))
 
-    captured = []
+    captured, sizes = [], []
     real_dock = cli.DockingEngine.dock_batch
 
     def spy(self, *a, **kw):
         res = real_dock(self, *a, **kw)
         captured.extend(res)
+        sizes.append(len(res))
         return res
 
     def screen(frac, tag):
@@ -982,10 +983,13 @@ def phase_cli(S, scorer_names):
         cnt = read_counts(fd)
         launches, coupled, calls = cnt.launches, cnt.coupled, cnt.calls
         check(rc == 0, f"the screen returned {rc}")
-        n_b = LIGANDS // 8
+        # batches of max(8, K3 slots // exhaustiveness) ligands: one of 16
+        # on an H100
+        n_b = len(sizes)
         n_win = MC_STEPS // 128
-        # the finish stages' lanes (8 ligands x saved poses) exceed what one
-        # cooperative launch holds, so they make more launches than calls
+        # the finish stages' lanes (a batch's ligands x saved poses) exceed
+        # what one cooperative launch holds, so they make more launches than
+        # calls
         check(calls["async_mc_window"] == n_b * n_win
               and calls["bfgs_minimize"] == n_b * (2 * n_win + 5)
               and calls["eval_fg"] == n_b
@@ -1026,7 +1030,8 @@ def phase_cli(S, scorer_names):
     finally:
         cli.DockingEngine.dock_batch = real_dock
         os.environ.pop("GNINA_TPU_FUSED_DONE_FRAC", None)
-    print(f"[5h] cli.main screen: {LIGANDS} ligands in {n_b} batches of 8 x "
+    print(f"[5h] cli.main screen: {LIGANDS} ligands in {n_b} batches of "
+          f"{sizes[0]} x "
           f"{EXHAUSTIVENESS} chains, {MC_STEPS} steps, default CNN rescore "
           f"({', '.join(scorer_names)}), GNINA_TPU_FUSED_DONE_FRAC=0.9: rc "
           f"0, {n_poses} SDF blocks for {LIGANDS} ligands in input order, "

@@ -2,8 +2,8 @@
 
 Counterpart of gnina_tpu/cli.py (reference: gninasrc/main/main.cpp options
 at :909-1083) on top of the PyTorch/CUDA docking engine: every flag of the
-JAX parser, the same log lines, the same screen (shape buckets, batches of
-8, per-ligand retry, `.partial` checkpoint and --resume).
+JAX parser, the same log lines, the same screen (shape buckets, batches,
+per-ligand retry, `.partial` checkpoint and --resume).
 
     python -m gnina_tpu_torch -r rec.pdb -l ligs.sdf --autobox_ligand \\
         ligs.sdf -o out.sdf [--device cpu]
@@ -17,9 +17,15 @@ Differences from the JAX CLI, all forced by the port:
   are shared, and the port's kernels take their shapes at run time.
 - Buckets are docked in a plain loop; `--no_compile_ahead` is accepted
   without effect (its two worker threads overlap XLA compiles).
+- Where K3 runs the search on a card, a batch holds as many ligands as
+  fill K3's resident pose blocks (16 at exhaustiveness 8 on an H100's 132
+  SMs), not the JAX CLI's 8 a card: the lanes' random streams move, and a
+  batch docks at the largest step heuristic of more ligands.  The CPU and
+  the other routes keep 8.
 
 Multi-GPU: a screen on the default device with more than one card shards
-each batch (8 ligands a card) over a "dp" mesh of every card
+each batch (8 ligands a card, more where K3 would leave SMs idle:
+DockingEngine.screen_batch) over a "dp" mesh of every card
 (parallel/mesh.py); `--dist_nprocs N` (or GNINA_TPU_NPROCS) runs a screen
 as N processes that meet over a gloo process group at `--dist_coordinator
 host:port` (parallel/multihost.py), each docking the round-robin slice of
@@ -769,9 +775,10 @@ def _screen_mesh(log, verbosity: int, dev):
 def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                 log, t_start, render_poses) -> int:
     """Batched virtual screen: bucket ligands by padded shape, dock each
-    bucket in batches of 8 a card, write results in input order.  Under
-    --dist_nprocs this process docks its round-robin slice and process 0
-    merges the part files."""
+    bucket in batches of `engine.screen_batch` ligands (8 a card, or as
+    many as fill K3's resident blocks on the card), write results in input
+    order.  Under --dist_nprocs this process docks its round-robin slice
+    and process 0 merges the part files."""
     from gnina_tpu_torch.parallel import multihost
 
     def bucket_key(lig):
@@ -788,7 +795,6 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
         return 1
     mesh = _screen_mesh(log, args.verbosity, engine.device)
     n_dev = mesh.shape["dp"] if mesh is not None else 1
-    batch_size = max(8, 8 * n_dev)
     order = {id(l): i for i, l in enumerate(all_ligs)}
     nprocs = getattr(args, "dist_nprocs", 1) or 1
     pid = getattr(args, "dist_procid", 0) or 0
@@ -850,11 +856,15 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
                   + ", ".join(f"{k}x{len(v)}" for k, v in buckets.items())
                   + "\n")
 
-    def dock_one(chunk):
+    def box_for(ligs):
         box_size = np.asarray(size)
         if args.autobox_ligand and args.autobox_extend:
-            span = max(l.max_span() for l in chunk) + 4
+            span = max(l.max_span() for l in ligs) + 4
             box_size = np.maximum(box_size, span)
+        return box_size
+
+    def dock_one(chunk):
+        box_size = box_for(chunk)
         try:
             res_b = engine.dock_batch(rec, chunk, center, box_size,
                                       seed=args.seed, mesh=mesh)
@@ -890,6 +900,10 @@ def _run_screen(args, engine, rec, center, size, ligands, cnn_enabled,
 
     # a plain loop over the buckets: there is no compile to overlap
     for key, blist in buckets.items():
+        # the bucket's box holds every batch's box, so its K3 launch takes
+        # at least as much shared memory as any batch's
+        batch_size = engine.screen_batch(rec, blist, center, box_for(blist),
+                                         n_dev)
         for i in range(0, len(blist), batch_size):
             chunk = blist[i:i + batch_size]
             with trace.span("screen.batch", bucket=key, ligands=len(chunk)):

@@ -266,6 +266,20 @@ def _minimize_iters_heuristic(lig: LigandStruct, settings: DockSettings) -> int:
     return max(int((25 + lig.num_atoms) / 3), 1)
 
 
+def batch_ligands(sms: Optional[int], blocks_per_sm: int,
+                  exhaustiveness: int, n_dev: int, k3: bool) -> int:
+    """Ligands a screen docks in one dock_batch over n_dev cards.  Where K3
+    runs the search (k3: the fused route with in-kernel async MC) on a card
+    with `sms` SMs, each card takes as many ligands as fill K3's resident
+    pose blocks (sms x blocks_per_sm, one lane a chain), and never fewer
+    than the JAX CLI's 8; off the card (sms None) and on every other route,
+    8 a card (gnina_tpu/cli.py's max(8, 8 * n_dev))."""
+    per_card = 8
+    if k3 and sms:
+        per_card = max(8, sms * blocks_per_sm // exhaustiveness)
+    return per_card * n_dev
+
+
 class DockingEngine:
     """Docking on one device, or on a mesh of them (dock_batch(mesh=)),
     through the fused kernels or the general path (module docstring).
@@ -319,6 +333,41 @@ class DockingEngine:
                 and all(l.num_lig_atoms in (-1, l.num_atoms)
                         and (l.other_pairs is None or not len(l.other_pairs))
                         for l in ligs))
+
+    def _runs_k3(self, ligs) -> bool:
+        """The search of a dock of ligs runs K3: the fused route with
+        in-kernel async MC windows (not the lockstep K5 or host steps)."""
+        s = self.settings
+        return (s.fused_mc_in_kernel and s.fused_async_mc
+                and self._fused_route(ligs))
+
+    def _k3_occupancy(self, device, n: int, m: int, k: int):
+        """fused_dock.k3_occupancy at the shared memory of a K3 launch for N
+        atom rows, M tree nodes and K receptor atoms; None where no plan
+        fits (the dock then fails on its own)."""
+        try:
+            nbytes = fd.smem_plan(n, m, 6 + m - 1, k).nbytes
+        except ValueError:
+            return None
+        return fd.k3_occupancy(device, nbytes)
+
+    def screen_batch(self, rec: Receptor, ligs: List[LigandStruct], center,
+                     size, n_dev: int = 1) -> int:
+        """Ligands a screen docks in one dock_batch from ligs (one shape
+        bucket) in this box, over n_dev cards: batch_ligands for K3's
+        resident blocks on the engine's card at the bucket's launch."""
+        k3 = self._runs_k3(ligs)
+        occ = None
+        if k3:
+            pruned = rec.pruned(np.asarray(center), np.asarray(size) / 2,
+                                margin=self.sf.cutoff)
+            occ = self._k3_occupancy(
+                self.device, _round_up(max(l.num_atoms for l in ligs), 8),
+                _round_up(max(l.num_nodes for l in ligs), 4),
+                len(pruned.types))
+        sms, per_sm = occ if occ else (None, 0)
+        return batch_ligands(sms, per_sm, self.settings.exhaustiveness,
+                             n_dev, k3)
 
     @property
     def _has_cnn(self) -> bool:
@@ -952,6 +1001,11 @@ class DockingEngine:
         devices = self._shard_devices(mesh)
         dp = len(devices)
         gps = len(ligs) // dp                   # ligands a shard
+        occ = self._k3_occupancy(devices[0], n, m, kr) \
+            if self._runs_k3(ligs) else None
+        if occ is not None:
+            # the cards' K3 slots: their fill is dock.lanes / screen.slots
+            trace.count("screen.slots", occ[0] * occ[1] * dp)
 
         # window schedule: the JAX package's arithmetic (docking.py:994-1051)
         base_chunk = int(s.mc_chunk_steps) or num_steps

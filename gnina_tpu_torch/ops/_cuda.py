@@ -10,7 +10,9 @@ import the package and run the plain versions.
   probes.cu      K9-K11, the rate probes      -> probes_lib()
 
 build_all() starts one nvcc per source at once; lib() and probes_lib()
-build only their own source when it is missing.
+build only their own source when it is missing.  occupancy() reads a
+kernel's resident blocks an SM from the CUDA driver, on a module loaded
+from the library's own device code.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {"fused_dock": os.path.join(_PKG, "csrc", "fused_dock.cu"),
@@ -160,3 +163,122 @@ def probes_lib() -> ctypes.CDLL:
 
 def error_string(code: int) -> str:
     return lib().gt_error_string(int(code)).decode()
+
+
+def fatbinary(name: str = "fused_dock") -> bytes:
+    """The `.nv_fatbin` section of a source's library (built if missing):
+    the device code its runtime registers, one or more fatbinaries."""
+    with open(build(name=name), "rb") as f:
+        elf = f.read()
+    shoff, = struct.unpack_from("<Q", elf, 0x28)
+    shentsize, shnum, shstrndx = struct.unpack_from("<HHH", elf, 0x3A)
+
+    def section(i):     # (name offset, file offset, size) of an ELF64 header
+        h = struct.unpack_from("<IIQQQQ", elf, shoff + i * shentsize)
+        return h[0], h[4], h[5]
+
+    strtab = section(shstrndx)[1]
+    for i in range(shnum):
+        at, off, size = section(i)
+        start = strtab + at
+        if elf[start:elf.index(b"\0", start)] == b".nv_fatbin":
+            return elf[off:off + size]
+    raise RuntimeError(f"lib{name}: no .nv_fatbin section")
+
+
+FATBIN_MAGIC = 0xBA55ED50
+
+
+def fatbin_images(section: bytes) -> List[bytes]:
+    """The fatbinaries of a `.nv_fatbin` section, each as the driver's
+    module loader takes it: a header (magic, version, header size, payload
+    size) and its payload, the next at the following 8-byte boundary."""
+    images, at = [], 0
+    while at + 16 <= len(section):
+        magic, _version, head, size = struct.unpack_from("<IHHQ", section,
+                                                         at)
+        if magic != FATBIN_MAGIC:
+            raise RuntimeError(f"no fatbinary header at byte {at}")
+        images.append(section[at:at + head + size])
+        at += -(-(head + size) // 8) * 8
+    return images
+
+
+_MODULES: Dict[tuple, tuple] = {}
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_PVP, _PCI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+# the driver functions the occupancy query calls (each returns a CUresult)
+_DRIVER = {"cuInit": [ctypes.c_uint], "cuDeviceGet": [_PCI, _CI],
+           "cuDevicePrimaryCtxRetain": [_PVP, _CI],
+           "cuCtxPushCurrent_v2": [_VP], "cuCtxPopCurrent_v2": [_PVP],
+           "cuModuleLoadData": [_PVP, _VP],
+           "cuModuleGetFunction": [_PVP, _VP, ctypes.c_char_p],
+           "cuFuncGetAttribute": [_PCI, _CI, _VP],
+           "cuFuncSetAttribute": [_VP, _CI, _CI],
+           "cuOccupancyMaxActiveBlocksPerMultiprocessor":
+               [_PCI, _VP, _CI, ctypes.c_size_t]}
+
+
+def _driver_check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA driver error {rc}")
+
+
+def _modules(name: str, device: int):
+    """(driver library, primary context, a module for each fatbinary of the
+    library's device code) for one card, loaded once a process."""
+    with _LOCK:
+        if (name, device) not in _MODULES:
+            cu = ctypes.CDLL("libcuda.so.1")
+            for fn, argtypes in _DRIVER.items():
+                getattr(cu, fn).argtypes = argtypes
+                getattr(cu, fn).restype = _CI
+            dev, ctx, mods = _CI(0), _VP(), []
+            _driver_check(cu.cuInit(0), "cuInit")
+            _driver_check(cu.cuDeviceGet(ctypes.byref(dev), device),
+                          "cuDeviceGet")
+            _driver_check(cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
+                          "cuDevicePrimaryCtxRetain")
+            _driver_check(cu.cuCtxPushCurrent_v2(ctx), "cuCtxPushCurrent")
+            try:
+                for image in fatbin_images(fatbinary(name)):
+                    mods.append(_VP())
+                    _driver_check(cu.cuModuleLoadData(
+                        ctypes.byref(mods[-1]),
+                        ctypes.create_string_buffer(image)),
+                        "cuModuleLoadData")
+            finally:
+                cu.cuCtxPopCurrent_v2(ctypes.byref(_VP()))
+            _MODULES[(name, device)] = (cu, ctx, mods)
+        return _MODULES[(name, device)]
+
+
+def occupancy(symbol: str, threads: int, smem: int, device: int,
+              name: str = "fused_dock"):
+    """(resident blocks an SM, registers a thread) of one kernel of a
+    source's library, by its C++ name, for blocks of `threads` threads and
+    `smem` bytes of dynamic shared memory on a card, from the CUDA driver's
+    occupancy calculator on a module of the library's own device code
+    (the library links the runtime statically and exports none of its
+    functions)."""
+    cu, ctx, mods = _modules(name, device)
+    fn, regs, blocks = _VP(), _CI(0), _CI(0)
+    _driver_check(cu.cuCtxPushCurrent_v2(ctx), "cuCtxPushCurrent")
+    try:
+        for mod in mods:     # the section holds an empty fatbinary too
+            if cu.cuModuleGetFunction(ctypes.byref(fn), mod,
+                                      symbol.encode()) == 0:
+                break
+        else:
+            raise RuntimeError(f"lib{name}: no kernel {symbol}")
+        _driver_check(cu.cuFuncGetAttribute(ctypes.byref(regs), 4, fn),
+                      "cuFuncGetAttribute")           # NUM_REGS
+        if smem > 48 * 1024:          # as the launch sets it (launch_setup)
+            _driver_check(cu.cuFuncSetAttribute(fn, 8, smem),
+                          "cuFuncSetAttribute")       # MAX_DYNAMIC_SHARED
+        _driver_check(cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+            ctypes.byref(blocks), fn, threads, smem),
+            "cuOccupancyMaxActiveBlocksPerMultiprocessor")
+    finally:
+        cu.cuCtxPopCurrent_v2(ctypes.byref(_VP()))
+    return blocks.value, regs.value

@@ -1757,6 +1757,32 @@ lockstep_mc_window = _KernelWrapper("lockstep_mc_window", _lockstep_mc_plain,
 
 KERNELS = (eval_fg, bfgs_minimize, async_mc_window, lockstep_mc_window)
 
+# K3's name in the library (csrc/fused_dock.cu k_async_mc, C++-mangled)
+K3_SYMBOL = ("_Z10k_async_mc8PackArgs8TermArgsPKfS2_S2_S2_S2_jiiiiifiPfS3_"
+             "S3_S3_S3_S3_S3_")
+_OCCUPANCY = {}
+
+
+def k3_occupancy(device, smem: int) -> Optional[Tuple[int, int]]:
+    """(SMs, K3 pose blocks resident an SM) of a CUDA device for a
+    `k_async_mc` launch of smem bytes of dynamic shared memory: the SM count
+    from the device's properties, the blocks from the occupancy calculator
+    (ops/_cuda.occupancy).  None on any other device."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, int(smem))
+    if key not in _OCCUPANCY:
+        from gnina_tpu_torch.ops import _cuda
+
+        blocks, _regs = _cuda.occupancy(K3_SYMBOL, BLOCK_THREADS, int(smem),
+                                        index)
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _OCCUPANCY[key] = (sms, blocks)
+    return _OCCUPANCY[key]
+
 
 class FusedBfgs:
     """Handle binding one scoring function and pack to the kernels, with

@@ -233,3 +233,73 @@ def test_node_sums_and_trial_gradient_per_kernel():
     terms = src[src.index("void pair_terms("):]
     terms = terms[:terms.index("\n}\n")]
     assert terms.count("__fmaf_rn(") == 3
+
+
+def _mangled(name, params):
+    """The Itanium C++ name of a function `name` taking `params`, for the
+    parameter types K3 uses (its structs, int, uint32_t, float, float*,
+    const float*), with the ABI's substitutions of repeated types."""
+    seen = []
+
+    def sub(code):
+        if code in seen:
+            i = seen.index(code)
+            return "S_" if i == 0 else f"S{i - 1}_"
+        return None
+
+    def mangle(t):
+        t = " ".join(t.split())
+        if t.endswith("*"):
+            inner = t[:-1].strip()
+            const = inner.startswith("const ")
+            base = {"float": "f"}[inner.replace("const ", "")]
+            full = "P" + ("K" if const else "") + base
+            if sub(full):
+                return sub(full)
+            if const and "K" + base not in seen:
+                seen.append("K" + base)
+            seen.append(full)
+            return full
+        builtin = {"int": "i", "uint32_t": "j", "float": "f"}
+        if t in builtin:
+            return builtin[t]
+        code = f"{len(t)}{t}"
+        if sub(code):
+            return sub(code)
+        seen.append(code)
+        return code
+
+    return f"_Z{len(name)}{name}" + "".join(mangle(p) for p in params)
+
+
+def test_k3_symbol_is_the_kernels_name_in_the_library():
+    """fused_dock.K3_SYMBOL, by which the occupancy query finds K3 in the
+    library's device code, is k_async_mc's C++ name for its parameters in
+    the source."""
+    src = _source()
+    m = re.search(r"\) k_async_mc\((.*?)\)\s*\{", src, re.S)
+    params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+    assert fd.K3_SYMBOL == _mangled("k_async_mc", params)
+    assert _mangled("k_eval_fg", ["PackArgs", "TermArgs", "const float *",
+                                  "const float *", "const float *",
+                                  "float *", "float *", "float *",
+                                  "float *"]) == \
+        "_Z9k_eval_fg8PackArgs8TermArgsPKfS2_S2_PfS3_S3_S3_"
+
+
+def test_fatbin_images_walk_the_section():
+    """The .nv_fatbin section's fatbinaries, each its header and payload,
+    the next at the following 8-byte boundary; a section that is not made
+    of them raises."""
+    import struct
+
+    def image(payload):
+        return struct.pack("<IHHQ", _cuda.FATBIN_MAGIC, 1, 16,
+                           len(payload)) + payload
+
+    a, b = image(b"x" * 984), image(b"kernels" * 3)
+    section = a + b + bytes(-len(b) % 8)
+    assert _cuda.fatbin_images(section) == [a, b]
+    assert _cuda.fatbin_images(a) == [a]
+    with pytest.raises(RuntimeError):
+        _cuda.fatbin_images(a + b"\0" * 16)

@@ -17,7 +17,7 @@ import torch
 from gnina_tpu import cli as jcli
 from gnina_tpu_torch import _fixtures as fx
 from gnina_tpu_torch import cli as tcli
-from gnina_tpu_torch.docking import DockSettings
+from gnina_tpu_torch.docking import DockSettings, batch_ligands
 
 NUM = re.compile(r"-?\d+\.\d+")
 
@@ -257,6 +257,83 @@ def test_a_failing_batch_is_retried_per_ligand(files, monkeypatch):
     assert "ERROR processing ligand ligB: bad molecule" in log
     blocks = [b for b in out.read_text().split("$$$$\n") if b.strip()]
     assert {b.splitlines()[0] for b in blocks} == {"ligA", "ligC"}
+
+
+# ------------------------------------------------- the screen's batches ----
+
+@pytest.mark.parametrize("sms,per_sm,e,n_dev,k3,want", [
+    (None, 0, 8, 1, True, 8),
+    (132, 1, 8, 1, True, 16),
+    (132, 1, 16, 1, True, 8),
+    (132, 1, 32, 1, True, 8),
+    (132, 1, 1, 1, True, 132),
+    (132, 1, 8, 2, True, 32),
+    (132, 1, 8, 1, False, 8),
+], ids=["cpu", "h100", "e16", "e32", "e1", "two_cards", "general_route"])
+def test_batch_ligands_fills_k3s_slots(sms, per_sm, e, n_dev, k3, want):
+    """A batch per card fills K3's resident pose blocks (SMs x blocks an
+    SM) at one lane a chain, never below 8; 8 a card off the card and off
+    K3's route; the dp mesh multiplies it by its cards."""
+    assert batch_ligands(sms, per_sm, e, n_dev, k3) == want
+
+
+def test_a_bucket_docks_as_one_batch_that_fills_the_slots(files,
+                                                          monkeypatch):
+    """With K3's slots reported as 128 (128 SMs x 1 block), a file of 16
+    ligands of one shape bucket at exhaustiveness 2 docks as one
+    screen.batch of 16 (64 a card; the JAX CLI's 8 would make two), and
+    the poses are written in input order.  Unpatched on the CPU, and on the
+    general route, the batch stays at 8."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnina_tpu_torch import trace
+    from gnina_tpu_torch.chem import ingest
+    from gnina_tpu_torch.docking import DockingEngine
+    from gnina_tpu_torch.ops import fused_dock as fd
+
+    with open(fx.LIGAND_SDF) as f:
+        records = f.read().split("$$$$\n")[:16]
+    names = [f"lig{i:02d}" for i in range(16)]
+    sixteen = files["dir"] / "sixteen.sdf"
+    sixteen.write_text("".join(n + r[r.index("\n"):] + "$$$$\n"
+                               for n, r in zip(names, records)))
+    rec = ingest.Receptor.from_file(files["rec"])
+    ligs = [fx.ligand()] * 16
+    center, size = ingest.autobox_ligand(files["one"])
+
+    def batch(**kw):
+        eng = DockingEngine(DockSettings(exhaustiveness=2, **kw),
+                            device="cpu")
+        return eng.screen_batch(rec, ligs, center, size)
+
+    assert batch() == 8
+    monkeypatch.setattr(fd, "k3_occupancy", lambda dev, smem: (128, 1))
+    assert batch() == 64
+    assert batch(fused_search="off") == 8
+    assert batch(fused_async_mc=False) == 8
+
+    out = files["dir"] / "sixteen_out.sdf"
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        rc, log = run(tcli, ["-r", files["rec"], "-l", str(sixteen),
+                             "--autobox_ligand", files["one"], "-o",
+                             str(out), "--minimize_iters", "2"] + DOCK,
+                        files["dir"] / "sixteen.log")
+    snap = trace.snapshot()
+    trace.reset()
+    assert rc == 0
+    batches = [s["attrs"] for s in snap["spans"]
+               if s["name"] == "screen.batch"]
+    assert len(batches) == 1 and batches[0]["ligands"] == 16
+    assert snap["counters"]["dock.lanes"] == 32
+    assert snap["counters"]["screen.slots"] == 128
+    heads = [x for x in log.splitlines() if x.startswith("## ")]
+    assert heads == [f"## {n}" for n in names]
+    blocks = [b.splitlines()[0] for b in out.read_text().split("$$$$\n")
+              if b.strip()]
+    assert len(blocks) >= 16
+    assert [n for i, n in enumerate(blocks)
+            if i == 0 or blocks[i - 1] != n] == names
 
 
 # ------------------------------------- fused_done_frac through the engine ----

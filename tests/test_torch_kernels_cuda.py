@@ -694,3 +694,56 @@ def test_term_values_and_atom_terms_on_the_card(card, monkeypatch):
         np.testing.assert_allclose([float(v) for v in a[5:]],
                                    [float(v) for v in b[5:]], rtol=1e-3,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------- the screen's batch ----
+
+def test_k3_slots_and_a_screen_batch_that_fills_them(card, tmp_path):
+    """fused_dock.k3_occupancy reads the card's SM count and K3's resident
+    blocks an SM from the driver's occupancy calculator (at most what K3's
+    registers allow); a 16-ligand screen at exhaustiveness
+    8 docks in batches of max(8, slots // 8) ligands: one dock_batch of 128
+    lanes on an H100's 132 SMs, counted beside its screen.slots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnina_tpu_torch import cli, trace
+    from gnina_tpu_torch.ops import _cuda
+
+    smem = fd.smem_plan(24, 8, 13, 2048).nbytes
+    occ = fd.k3_occupancy(card, smem)
+    props = torch.cuda.get_device_properties(card)
+    blocks, regs = _cuda.occupancy(fd.K3_SYMBOL, fd.BLOCK_THREADS, smem,
+                                   torch.cuda.current_device())
+    assert occ == (props.multi_processor_count, blocks)
+    assert ctypes.cast(_cuda.lib()[fd.K3_SYMBOL], ctypes.c_void_p).value
+    warps = fd.BLOCK_THREADS // 32
+    by_regs = 65536 // (warps * 32 * (-(-regs // 8) * 8))
+    assert 1 <= blocks <= by_regs
+
+    lig = fx.ligand()
+    rec = tmp_path / "rec.pdb"
+    rec.write_text(fx.receptor_pdb_text(fx.ligand_center(lig), seed=4,
+                                        cube=22.0))
+    with open(fx.LIGAND_SDF) as f:
+        records = f.read().split("$$$$\n")
+    (tmp_path / "one.sdf").write_text(records[0] + "$$$$\n")
+    (tmp_path / "sixteen.sdf").write_text("".join(
+        f"lig{i:02d}" + r[r.index("\n"):] + "$$$$\n"
+        for i, r in enumerate(records[:16])))
+    argv = ["-r", str(rec), "-l", str(tmp_path / "sixteen.sdf"),
+            "--autobox_ligand", str(tmp_path / "one.sdf"), "--cnn_scoring",
+            "none", "--num_mc_steps", "32", "--exhaustiveness", "8",
+            "-o", str(tmp_path / "out.sdf"), "-q",
+            "--log", str(tmp_path / "log")]
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert cli.main(argv) == 0
+    c = trace.snapshot()["counters"]
+    trace.reset()
+    slots = occ[0] * occ[1]
+    per_batch = max(8, slots // 8)
+    assert c["dock.batches"] == -(-16 // per_batch)
+    assert c["screen.slots"] == slots * c["dock.batches"]
+    assert c["dock.lanes"] == 128
+    if slots == 132:
+        assert c["dock.batches"] == 1

@@ -271,3 +271,34 @@ def test_verbosity_2_prints_the_summary_table(files, capsys):
     assert cli.main(argv) == 0
     assert "Trace (seconds" not in capsys.readouterr().out
     assert trace.snapshot()["spans"] == []
+
+
+def test_a_dock_counts_the_cards_k3_slots(files, monkeypatch):
+    """dock_batch counts screen.slots, the K3 pose blocks resident on its
+    cards (SMs x blocks an SM x the mesh's cards), beside dock.lanes; none
+    where the occupancy is unknown (the CPU) or K3 does not run."""
+    from gnina_tpu_torch.chem import ingest
+    from gnina_tpu_torch.docking import DockingEngine, DockSettings
+    from gnina_tpu_torch.ops import fused_dock as fd
+    from gnina_tpu_torch.parallel.mesh import Mesh
+
+    rec = ingest.Receptor.from_file(files["rec"])
+    lig = fx.ligand()
+    center, size = ingest.autobox_ligand(files["one"])
+    kw = dict(cnn_scoring="none", num_mc_steps=8, exhaustiveness=2,
+              num_mc_saved=2, num_modes=2, minimize_iters=2)
+
+    def counters(mesh=None, **extra):
+        eng = DockingEngine(DockSettings(**kw, **extra), device="cpu")
+        with trace.command(True):
+            eng.dock_batch(rec, [lig, lig], center, size, seed=1, mesh=mesh)
+        c = trace.snapshot()["counters"]
+        trace.reset()
+        return c
+
+    assert "screen.slots" not in counters()
+    monkeypatch.setattr(fd, "k3_occupancy", lambda dev, smem: (66, 2))
+    c = counters(mesh=Mesh.of(["cpu", "cpu"]))
+    assert c["screen.slots"] == 2 * 132 and c["dock.lanes"] == 4
+    assert c["dock.batches"] == 1
+    assert "screen.slots" not in counters(fused_mc_in_kernel=False)
