@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds csrc/fused_dock.cu and csrc/probes.cu from this checkout (one nvcc
-each, started together, sm_90a), holds each of their kernels and kernel
+Builds csrc/fused_dock.cu, csrc/probes.cu and csrc/voxelize.cu from this
+checkout (one nvcc each, started together, sm_90a), holds each of their kernels and kernel
 modes (K1 eval_fg, K2 bfgs_minimize and its async_ls mode K4, K3
 async_mc_window and its warm_ls mode K6, K5 lockstep_mc_window, K7's
 gradient layout over K1, K8 the done_frac group stop of K2/K4/K5, and the
@@ -23,7 +23,8 @@ and each of the four again with fused_done_frac=0.9.
 Then it docks under the default settings with the default three-model CNN
 ensemble (at 1024 steps, and once at the settings' own step heuristic),
 holds the grids and ensemble outputs of one pose chunk against the same
-code on the CPU, drives the command line in process (cli.main: a screen
+code on the CPU and the CUDA voxeliser's 128-pose grids against the plain
+voxeliser's on the card (one launch a chunk of the dock's rescore), drives the command line in process (cli.main: a screen
 of the 16 ligands from files with GNINA_TPU_FUSED_DONE_FRAC=0.9 and the
 default CNN rescore, whose SDF tags must equal the engine's energies, then
 --score_only, --minimize and --randomize_only on one ligand), and times
@@ -2868,6 +2869,7 @@ def main():
     sos = _cuda.build_all(verbose=True)     # one nvcc per source, together
     _cuda.lib()
     _cuda.probes_lib()
+    _cuda.voxelize_lib()
     build_s = time.perf_counter() - t0
     print(f"[1] device {kind} | {smi} | kernels built in {build_s:.1f} s ("
           + ", ".join(os.path.basename(v) for v in sos.values()) + ")",
@@ -3474,8 +3476,11 @@ def main():
     check(st_cnn.cnn_scoring == "rescore" and st_cnn.sort_order == "auto",
           "not the default CNN settings")
     eng_cnn = DockingEngine(st_cnn, cnn_scorer=scorer)
+    from gnina_tpu_torch.ops import voxelize as vox_mod
+    vox_mod.voxelize_cuda.launches = 0
     res_cnn, wall_cnn, cnt = counted_dock(
         fd, eng_cnn, rec, ligs, center, size, seed=args.seed + 1)
+    vox_launches = vox_mod.voxelize_cuda.launches
     ln = cnt.launches
     check(ln["async_mc_window"] == n_win and ln["eval_fg"] == 1
           and ln["bfgs_minimize"] == 2 * n_win + 5,
@@ -3491,6 +3496,13 @@ def main():
               "non-finite CNN affinity or variance")
     check(rescore["calls"] == 1, "the rescore was not one batched call")
     resc_s, resc_n = rescore["s"], rescore["poses"]
+    # one voxeliser launch a pose chunk of the rescore (one voxelisation
+    # group: the three models share their grids)
+    resc_chunks = -(-resc_n // min(1 << (resc_n - 1).bit_length(),
+                                   MAX_POSE_BATCH))
+    check(vox_launches == resc_chunks,
+          f"the dock's rescore launched the CUDA voxeliser {vox_launches} "
+          f"times for {resc_chunks} chunks of {resc_n} poses")
 
     # one pose chunk on the card against the same code on the CPU: the
     # first 8 poses (a chunk of a smaller call; a 128-pose chunk through
@@ -3531,6 +3543,32 @@ def main():
         vox_ms = timed(lambda: scorer.voxelize_group(
             scorer.models[0], *a128, prep128["win"]), 3)
         g128 = scorer.voxelize_group(scorer.models[0], *a128, prep128["win"])
+    with torch.enable_grad():      # the kernel runs outside autograd only
+        plain_vox_ms = timed(lambda: scorer.voxelize_group(
+            scorer.models[0], *a128, prep128["win"]), 1)
+        plain128 = scorer.voxelize_group(scorer.models[0], *a128,
+                                         prep128["win"])
+    vox_err = float((g128 - plain128).abs().max())   # no float64 copies
+    del plain128
+    check(g128.is_contiguous() and tuple(g128.shape)
+          == (MAX_POSE_BATCH, 28, 48, 48, 48), "the kernel's grid layout")
+    check(vox_err <= 1e-5,
+          f"the kernel's 128-pose grids off the plain voxeliser's by "
+          f"{vox_err}")
+    # the kernel's least bytes: the grids written once, its operands read
+    # once (coordinates, channel, radius and mask: 21 B an atom row)
+    vox_bytes = g128.numel() * 4 + 21 * (a128[0].shape[0]
+                                         + a128[3][..., 0].numel())
+    vox_bound, vox_by = bound_ms(0.0, vox_bytes)
+    vox_row = dict(
+        name="voxelize_cuda",
+        shape=f"B={MAX_POSE_BATCH} N={a128[3].shape[1]} "
+              f"K={a128[0].shape[0]}",
+        ms=vox_ms, plain_ms=plain_vox_ms, bound_ms=vox_bound,
+        bound_by=vox_by, launches=vox_launches, calls=vox_launches,
+        replaces="none", max_abs_err=vox_err,
+        source="gnina_tpu_torch/csrc/voxelize.cu")
+    with torch.no_grad():
         fwd_ms = {m_.name: timed(lambda: m_.module(g128), 3)
                   for m_ in scorer.models}
         torch.cuda.reset_peak_memory_stats()
@@ -3547,7 +3585,10 @@ def main():
           f"({100 * resc_s / wall_cnn:.1f}%); poses sorted by cnnscore, "
           f"best cnnscore {max(r_[0].cnnscore for r_ in res_cnn):.3f}; "
           f"receptor window {prep128['win']} of {len(prep128['rec'][0])} "
-          f"atoms; per 128-pose chunk: voxelise {vox_ms:.1f} ms, forward "
+          f"atoms; per 128-pose chunk: voxelise {vox_ms:.3f} ms (the "
+          f"plain voxeliser {plain_vox_ms:.1f} ms, max |d| {vox_err:.2e}; "
+          f"{vox_launches} launches for the dock's {resc_chunks} chunks), "
+          f"forward "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in fwd_ms.items())
           + f", peak memory {peak_gb:.2f} GiB; card vs CPU on an 8-pose "
           f"chunk: grids max |d| {grid_err:.2e} (atol 1e-4), ensemble "
@@ -3742,6 +3783,7 @@ def main():
         replaces="gnina_tpu/ops/pallas_dock.py:960",
         max_abs_err=errs["debug_grad"]))
     rows.extend(probe_rows)
+    rows.append(vox_row)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} not on the main path")
         lib = ("no single PyTorch call computes it"

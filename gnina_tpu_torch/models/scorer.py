@@ -7,7 +7,9 @@ Counterpart of the JAX package's gnina_tpu/models/scorer.py:
 - models sharing the same typer/grid settings share voxelized grids;
 - the receptor and the ligand are voxelized apart and added (densities are
   additive and their channel ranges disjoint), the receptor through the
-  x-sorted per-slab atom window;
+  x-sorted per-slab atom window; on a card outside autograd both come
+  from one launch of the CUDA voxeliser (ops/voxelize.voxelize_cuda),
+  which writes the grids once in the layout the convolutions read;
 - the CNN losses as minimisation objectives (make_loss_fn*) take a batch of
   poses with a grid centre each, where the JAX functions take one pose and
   are vmapped; their gradients with respect to the atom coordinates come
@@ -28,8 +30,8 @@ from gnina_tpu_torch.device import resolve_device
 from gnina_tpu_torch.models.registry import CNNModel, expand_model_names, \
     load_model
 from gnina_tpu_torch.ops.quat import quaternion_to_matrix, random_orientation
-from gnina_tpu_torch.ops.voxelize import slab_window_size, voxelize_batch, \
-    voxelize_windowed
+from gnina_tpu_torch.ops.voxelize import kernel_applies, slab_window_size, \
+    voxelize_batch, voxelize_cuda, voxelize_windowed
 
 # pose-axis chunk of the batched rescore: bounds the voxelizer's (poses,
 # grid-slab, atoms) intermediate and keeps one forward shape
@@ -382,11 +384,19 @@ class CNNScorer:
                        win: int, rotation=None):
         """(B, C, n, n, n) grids of one pose chunk under model m0's
         voxelization settings.  rotation None: the receptor through the
-        x-sorted window (when win) plus the ligand; else (B, 3, 3)
+        x-sorted window (when win) plus the ligand, in one launch of the
+        CUDA voxeliser on a card outside autograd; else (B, 3, 3)
         matrices that turn each complex about its grid center, everything
         through the plain voxelizer."""
         with trace.span("cnn.voxelize", device=centers.device):
             if rotation is None and win:
+                if kernel_applies(centers):
+                    rec_chan, rec_radii = _rec_typing(m0, rec_types)
+                    lig_chan, lig_radii = _lig_typing(m0, lig_types_b)
+                    return voxelize_cuda(
+                        rec_coords, rec_chan, rec_radii, rec_mask, centers,
+                        ligand=(lig_coords_b, lig_chan, lig_radii,
+                                lig_mask_b), **_grid_kw(m0))
                 return (self.receptor_grids(m0, rec_coords, rec_types,
                                             rec_mask, centers, win)
                         + self.ligand_grids(m0, lig_coords_b, lig_types_b,
@@ -414,8 +424,12 @@ class CNNScorer:
     def receptor_grids(m0: CNNModel, rec_coords, rec_types, rec_mask,
                        centers, win: int):
         """(B, C, n, n, n) grids of the receptor alone (sorted by x) at B
-        centers through the per-slab window, under m0's settings."""
+        centers through the per-slab window, under m0's settings; on a
+        card outside autograd, one launch of the CUDA voxeliser."""
         rec_chan, rec_radii = _rec_typing(m0, rec_types)
+        if kernel_applies(centers):
+            return voxelize_cuda(rec_coords, rec_chan, rec_radii, rec_mask,
+                                 centers, **_grid_kw(m0))
         return voxelize_windowed(rec_coords, rec_chan, rec_radii, rec_mask,
                                  centers, window=win, **_grid_kw(m0))
 

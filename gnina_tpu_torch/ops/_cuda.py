@@ -8,11 +8,12 @@ import the package and run the plain versions.
 
   fused_dock.cu  K1-K8, the docking kernels   -> lib()
   probes.cu      K9-K11, the rate probes      -> probes_lib()
+  voxelize.cu    the CNN rescore's voxeliser  -> voxelize_lib()
 
-build_all() starts one nvcc per source at once; lib() and probes_lib()
-build only their own source when it is missing.  occupancy() reads a
-kernel's resident blocks an SM from the CUDA driver, on a module loaded
-from the library's own device code.
+build_all() starts one nvcc per source at once; lib(), probes_lib() and
+voxelize_lib() build only their own source when it is missing.
+occupancy() reads a kernel's resident blocks an SM from the CUDA driver,
+on a module loaded from the library's own device code.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {"fused_dock": os.path.join(_PKG, "csrc", "fused_dock.cu"),
-           "probes": os.path.join(_PKG, "csrc", "probes.cu")}
+           "probes": os.path.join(_PKG, "csrc", "probes.cu"),
+           "voxelize": os.path.join(_PKG, "csrc", "voxelize.cu")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -148,7 +150,17 @@ def _bind_probes(so) -> None:
     so.gt_probe_error_string.restype = ctypes.c_char_p
 
 
-_BIND = {"fused_dock": _bind_fused, "probes": _bind_probes}
+def _bind_voxelize(so) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    so.gt_voxelize.argtypes = [vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, ci,
+                               vp, ci, ci, ci, cf, cf, cf, vp, vp]
+    so.gt_voxelize.restype = ci
+    so.gt_voxelize_error_string.argtypes = [ci]
+    so.gt_voxelize_error_string.restype = ctypes.c_char_p
+
+
+_BIND = {"fused_dock": _bind_fused, "probes": _bind_probes,
+         "voxelize": _bind_voxelize}
 
 
 def lib() -> ctypes.CDLL:
@@ -159,6 +171,11 @@ def lib() -> ctypes.CDLL:
 def probes_lib() -> ctypes.CDLL:
     """The loaded probe library, built on first use."""
     return _load("probes")
+
+
+def voxelize_lib() -> ctypes.CDLL:
+    """The loaded voxeliser library, built on first use."""
+    return _load("voxelize")
 
 
 def error_string(code: int) -> str:

@@ -26,9 +26,18 @@ float32 rounding of the distance itself, so the card and the CPU agree to
 own rounding.  The channel reduction is still a matmul and must run in full
 float32: the package switches TF32 off at import
 (gnina_tpu_torch/__init__.py); do not turn it on.
+
+On a card and outside autograd, the rescore's grids (a receptor sorted by
+x and a chunk of ligand poses) come from one CUDA kernel instead,
+voxelize_cuda (csrc/voxelize.cu): the same density and rounding rules,
+written once as contiguous (B, C, n, n, n) grids.  The plain functions
+here stay for the CPU, for rotated grids and for every gradient, and are
+the kernel's reference in the card tests.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -190,3 +199,86 @@ def voxelize_windowed(coords, channels, radii, mask, centers,
         dens = density_at(d2, r[wi][:, :, None, :])
         out[:, s0:s1] = torch.matmul(dens, onehot[wi])
     return out.reshape(b, n, n, n, num_channels).permute(0, 4, 1, 2, 3)
+
+
+def on_card(t) -> bool:
+    """Whether tensor t lies on a CUDA device."""
+    return t.is_cuda
+
+
+def kernel_applies(t) -> bool:
+    """Whether voxelize_cuda takes a job on t's device now: on a card and
+    outside autograd (the kernel has no backward)."""
+    return on_card(t) and not torch.is_grad_enabled()
+
+
+def _operand(t, name: str, shape, dtype, device):
+    """t as the kernel reads it: contiguous, integer channels as int32."""
+    ok = torch.is_tensor(t) and (
+        t.dtype == dtype or dtype == torch.int32 and not (
+            t.dtype.is_floating_point or t.dtype == torch.bool))
+    if not ok or t.device != device or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"voxelize_cuda: {name} must be a {dtype} tensor "
+                         f"of shape {tuple(shape)} on {device}")
+    return t.to(dtype).contiguous()
+
+
+def voxelize_cuda(rec_coords, rec_channels, rec_radii, rec_mask, centers,
+                  num_channels: int, npoints: int = 48,
+                  resolution: float = 0.5, radius_scale: float = 1.0,
+                  ligand=None):
+    """Contiguous density grids (B, C, n, n, n) of one receptor and B
+    ligand poses at B centres, in one launch of the CUDA kernel
+    (csrc/voxelize.cu); CUDA tensors only.
+
+    rec_coords (K, 3) float32, its present rows sorted by x and its masked
+    rows after them (prepare_multi's order); rec_channels (K,) integer,
+    -1 = skip; rec_radii (K,) float32; rec_mask (K,) bool.  ligand: None or
+    (coords (B, N, 3), channels (B, N), radii (B, N), mask (B, N)) of the
+    same types.  Equal to voxelize_windowed(receptor) +
+    voxelize_batch(ligand) up to the order of each channel's sum."""
+    from gnina_tpu_torch.ops import _cuda
+
+    dev = centers.device
+    if not on_card(centers):
+        raise ValueError("voxelize_cuda: the kernel runs on CUDA tensors; "
+                         "use voxelize_windowed and voxelize_batch")
+    b, k = centers.shape[0], rec_coords.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    centers = _operand(centers, "centers", (b, 3), f32, dev)
+    rec = [_operand(rec_coords, "rec_coords", (k, 3), f32, dev),
+           _operand(rec_channels, "rec_channels", (k,), i32, dev),
+           _operand(rec_radii, "rec_radii", (k,), f32, dev),
+           _operand(rec_mask, "rec_mask", (k,), torch.bool, dev)]
+    rmax = (rec[2].amax().reshape(1) if k
+            else torch.zeros(1, dtype=f32, device=dev))
+    nl = 0 if ligand is None else ligand[0].shape[1]
+    lig = [None] * 4
+    if nl:
+        lig = [_operand(t, name, shape, dtype, dev) for t, name, shape, dtype
+               in zip(ligand, ("lig_coords", "lig_channels", "lig_radii",
+                               "lig_mask"),
+                      ((b, nl, 3), (b, nl), (b, nl), (b, nl)),
+                      (f32, i32, f32, torch.bool))]
+    n = npoints
+    out = torch.empty((b, num_channels, n, n, n), dtype=f32, device=dev)
+    if b == 0:
+        return out
+
+    def p(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+    lib = _cuda.voxelize_lib()
+    code = lib.gt_voxelize(
+        *map(p, rec), p(rmax), k, *map(p, lig), nl, p(centers), b,
+        num_channels, n, resolution, resolution * (n - 1) / 2.0,
+        radius_scale, p(out),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if code != 0:
+        raise RuntimeError(f"voxelize_cuda: CUDA error {code}: "
+                           + lib.gt_voxelize_error_string(code).decode())
+    voxelize_cuda.launches += 1
+    return out
+
+
+voxelize_cuda.launches = 0
